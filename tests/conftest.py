@@ -13,6 +13,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running test (deselect with `-m 'not slow'`)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture
