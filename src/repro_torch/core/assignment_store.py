@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.freq_estimator import hash_ids
+from repro_torch.core.freq_estimator import hash_ids, last_of_slot
 from repro_torch.kernels import ref as kref
 
 
@@ -51,10 +51,7 @@ def write(store: AssignmentStore, ids: torch.Tensor, cluster: torch.Tensor,
     """
     slots = hash_ids(ids, store.capacity)
     rows = torch.arange(slots.shape[0], device=slots.device)
-    last = torch.full((store.capacity,), -1, dtype=torch.int64,
-                      device=slots.device)
-    last.scatter_reduce_(0, slots, rows, reduce="amax")
-    keep = last[slots] == rows
+    keep = last_of_slot(slots, store.capacity)
     slots, rows = slots[keep], rows[keep]
     wid = ids.to(torch.int32)[rows]
     wcl = cluster.to(torch.int32)[rows]

@@ -1,16 +1,19 @@
-"""The streaming VQ retriever's serve path: indexing step -> merge sort ->
-ranking step (paper Fig. 1).
+"""The streaming VQ retriever: indexing step + ranking step (paper Fig. 1).
 
 Functional model: ``params`` (gradient-trained, a dict of tensors laid
 out like the reference's pytree) plus ``IndexState`` (codebook and PS
-tables).  ``serve`` runs the two-step retrieval: cluster ranking
-(u.Q(v_emb)), the k-way merge-sort candidate generation (Alg. 1), and the
-ranking-step model that orders the final set.  The train step is not
-ported yet.
+tables, updated in the same train step: index immediacy, §3.1).
+
+``train_step`` consumes one impression-stream batch and optionally one
+candidate-stream batch; both update the item -> cluster assignment store
+in the step that computes the assignment.  ``serve`` runs the two-step
+retrieval: cluster ranking (u.Q(v_emb)), the k-way merge-sort candidate
+generation (Alg. 1), and the ranking-step model that orders the final
+set.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -19,10 +22,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import EmbeddingSpec, SVQConfig
 from repro_torch.core import assignment_store as astore
 from repro_torch.core import freq_estimator as freq
-from repro_torch.core import merge_sort, ranking, vq
+from repro_torch.core import losses, merge_sort, ranking, vq
 from repro_torch.kernels import ops as kops
 from repro_torch.models.dense import init_mlp, mlp, select, stack
 from repro_torch.models.recsys import embedding as emb
+from repro_torch.utils import tree
 
 Params = Dict[str, Any]
 
@@ -118,6 +122,125 @@ def index_forward(params: Params, cfg: SVQConfig, user_feat: torch.Tensor,
                      for t in range(cfg.n_tasks)])
     v_all = mlp(params["item_tower"], item_feat)
     return u, v_all[..., :-1], v_all[..., -1]
+
+
+# ---------------------------------------------------------------------------
+# Training step
+# ---------------------------------------------------------------------------
+
+def _loss(p: Params, state: IndexState, cfg: SVQConfig,
+          batch: Dict[str, torch.Tensor], logq: Optional[torch.Tensor]):
+    """-> (total loss, assignment, v_emb, v_bias, per-term metrics)."""
+    user_feat, _ = user_features(p, batch["user_id"], batch["hist"])
+    item_feat = item_features(p, batch["item_id"], batch["item_cate"])
+    u, v_emb, v_bias = index_forward(p, cfg, user_feat, item_feat)
+
+    # Eq. 10 assignment (no gradient through the assignment itself)
+    with record_function("vq_assign"):
+        assignment = vq.assign(state.vq, v_emb.detach(), cfg.disturbance_s)
+    e_st = vq.quantize(state.vq, v_emb, assignment)
+
+    labels = batch["labels"]                     # (B, P) rewards
+    ldt = torch.bfloat16 if cfg.logits_dtype == "bfloat16" else None
+    total = 0.0
+    per_task = {}
+    for t in range(cfg.n_tasks):
+        pos = labels[:, t] > 0
+        with record_function("inbatch_softmax"):
+            la = losses.l_aux(u[t], v_emb, v_bias, logq, valid=pos,
+                              dtype=ldt)
+            li = losses.l_ind(u[t], v_emb, e_st, v_bias, logq, valid=pos,
+                              dtype=ldt)
+        total = total + la + li
+        per_task[f"l_aux_{t}"] = la
+        per_task[f"l_ind_{t}"] = li
+    if cfg.use_l_sim:   # §3.2 ablation: vanilla VQ-VAE commitment
+        lsim = losses.l_sim(v_emb,
+                            state.vq.embeddings()[assignment.long()])
+        total = total + lsim
+        per_task["l_sim"] = lsim
+
+    # ranking step (shared embeddings, own towers)
+    rlogits = ranking.ranking_scores(p["rank"], cfg, user_feat, item_feat)
+    lrank = 0.0
+    for t in range(cfg.n_tasks):
+        lr = losses.bce_logits(rlogits[t],
+                               (labels[:, t] > 0).to(rlogits.dtype))
+        lrank = lrank + lr
+        per_task[f"l_rank_{t}"] = lr
+    total = total + lrank
+    return total, assignment, v_emb, v_bias, per_task
+
+
+def train_step(params: Params, state: IndexState, cfg: SVQConfig,
+               batch: Dict[str, Any],
+               cand_batch: Optional[Dict[str, Any]] = None, device=None):
+    """One impression-stream step -> (grads, new_state, metrics).
+
+    The caller owns the optimizer (train/loop.py); ``grads`` has the tree
+    layout of ``params``.  ``batch``: user_id (B,), hist (B, H), item_id
+    (B,), item_cate (B,), labels (B, P) rewards in [0, inf), as tensors
+    or numpy arrays, moved to ``device`` (``cuda`` unless named), where
+    ``params`` and ``state`` must already lie.
+    """
+    device = resolve_device(device)
+    if state.vq.w.device.type != device.type:
+        raise ValueError(f"index state lies on {state.vq.w.device}, "
+                         f"train_step runs on {device}")
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    step = state.step + 1
+
+    # -- streaming frequency estimation (also = popularity for Eq. 7) ----
+    new_freq, delta = freq.update(state.freq, batch["item_id"], step)
+    logq = freq.log_q(delta) if cfg.logq_debias else None
+
+    # the grads are taken over detached copies of the param leaves
+    paths = tree.flatten_with_path(params)
+    leaves = [leaf.detach().requires_grad_(True) for _, leaf in paths]
+    p = tree.unflatten(params, leaves)
+    with torch.enable_grad():
+        loss, assignment, v_emb, v_bias, per_task = _loss(p, state, cfg,
+                                                          batch, logq)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree.unflatten(params, [
+        torch.zeros_like(leaf) if g is None else g
+        for leaf, g in zip(leaves, grads)])
+
+    with torch.no_grad():
+        v_emb, v_bias, loss = v_emb.detach(), v_bias.detach(), loss.detach()
+        per_task = {k: t.detach() for k, t in per_task.items()}
+        # -- EMA codebook update, popularity/reward weighted (Eq. 7-9) ----
+        multi = cfg.n_tasks > 1
+        impressed = torch.max(batch["labels"], dim=-1).values >= 0
+        weight = vq.popularity_weight(
+            delta, cfg.beta, rewards=batch["labels"] if multi else None,
+            eta=cfg.eta if multi else None, valid=impressed)
+        with record_function("ema_segment_sum"):
+            new_vq = vq.ema_update(state.vq, v_emb, assignment, weight,
+                                   cfg.ema_alpha)
+
+        # -- real-time PS write-back (index immediacy) --------------------
+        new_store = astore.write(state.store, batch["item_id"], assignment,
+                                 v_emb, v_bias)
+
+        # -- candidate stream: forward-only assignment refresh (§3.1) -----
+        if cand_batch is not None:
+            cand = {k: torch.as_tensor(v, device=device)
+                    for k, v in cand_batch.items()}
+            c_feat = item_features(params, cand["item_id"],
+                                   cand["item_cate"])
+            cv_all = mlp(params["item_tower"], c_feat)
+            cv_emb, cv_bias = cv_all[..., :-1], cv_all[..., -1]
+            with record_function("vq_assign"):
+                c_assign = vq.assign(new_vq, cv_emb, cfg.disturbance_s)
+            new_store = astore.write(new_store, cand["item_id"], c_assign,
+                                     cv_emb, cv_bias)
+
+        new_state = IndexState(vq=new_vq, store=new_store, freq=new_freq,
+                               step=step)
+        metrics = dict(loss=loss, **per_task,
+                       **vq.cluster_usage_stats(new_vq, assignment))
+    return grads, new_state, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own with ``nvcc`` into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the repo root, at first use, from the sources in the checkout.  The file
-name carries a hash of the source and of the flags, so an edited source
-is rebuilt.  A failed build raises.
+name carries a hash of the source, of the shared headers
+(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("cluster_rank", "merge_serve")
+KERNELS = ("cluster_rank", "merge_serve", "vq_assign", "inbatch_softmax",
+           "ema_segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,6 +37,24 @@ _SIGNATURES = {
         "merge_serve_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P], _I),
         "merge_serve_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    },
+    "vq_assign": {
+        "vq_assign_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "vq_assign_smem_bytes": ([_I], ctypes.c_size_t),
+    },
+    "inbatch_softmax": {
+        "inbatch_softmax_fwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _P], _I),
+        "inbatch_softmax_bwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _P], _I),
+        "inbatch_softmax_smem_bytes": ([_I], ctypes.c_size_t),
+        "inbatch_softmax_max_d": ([], _I),
+    },
+    "ema_segment_sum": {
+        "ema_segment_sum_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _P], _I),
+        "ema_segment_sum_slices": ([], _I),
+        "ema_segment_sum_smem_bytes": ([_I], ctypes.c_size_t),
     },
 }
 
@@ -57,6 +76,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

@@ -52,3 +52,96 @@ def index_sort_ref(cluster: torch.Tensor, bias: torch.Tensor
                        torch.full_like(b, 0xFFFFFFFF), asc ^ 0xFFFFFFFF)
     key = (cluster.to(torch.int64) << 32) | desc
     return torch.sort(key, stable=True).indices
+
+
+def vq_assign_ref(v: torch.Tensor, e: torch.Tensor, r: torch.Tensor
+                  ) -> torch.Tensor:
+    """Eq. 10: argmin_k max(||v||^2 - 2 v.e_k + ||e_k||^2, 0) * r_k, the
+    first minimum.  v: (B, d), e: (K, d), r: (K,) -> (B,) int32."""
+    v = v.to(torch.float32)
+    e = e.to(torch.float32)
+    d2 = (torch.sum(v * v, dim=-1, keepdim=True) - 2.0 * (v @ e.T)
+          + torch.sum(e * e, dim=-1)[None, :])
+    scores = torch.clamp(d2, min=0.0) * r.to(torch.float32)[None, :]
+    return torch.argmin(scores, dim=-1).to(torch.int32)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """At least float32: float64 stays, so autograd.gradcheck can run."""
+    return t if t.dtype == torch.float64 else t.to(torch.float32)
+
+
+def _inbatch_logits(u, v, bias, log_q):
+    return _f32(u) @ _f32(v).T + _f32(bias)[None, :] - _f32(log_q)[None, :]
+
+
+def inbatch_softmax_ref(u: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                        log_q: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row in-batch CE of Eq. 1 + Eq. 11 + logQ, with the softmax
+    stats: z = u v^T + bias - logQ (B, B) -> (loss, m, l), where
+    m = max_r z_or, l = sum_r exp(z_or - m) and
+    loss = m + log(l) - z_oo."""
+    z = _inbatch_logits(u, v, bias, log_q)
+    m = torch.max(z, dim=-1).values
+    l = torch.sum(torch.exp(z - m[:, None]), dim=-1)
+    return m + torch.log(l) - torch.diagonal(z), m, l
+
+
+def inbatch_softmax_bwd_ref(u: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor, log_q: torch.Tensor,
+                            lse: torch.Tensor, g: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """VJP of the per-row CE from the saved lse, with p = exp(z - lse):
+
+        du_o    = g_o (sum_r p_or v_r - v_o)
+        dv_r    = sum_o g_o p_or u_o  -  g_r u_r
+        dbias_r = sum_o g_o p_or  -  g_r          (dlogq = -dbias)
+    """
+    u32, v32, g32 = _f32(u), _f32(v), _f32(g)
+    p = torch.exp(_inbatch_logits(u, v, bias, log_q) - _f32(lse)[:, None])
+    gp = g32[:, None] * p
+    du = g32[:, None] * (p @ v32 - v32)
+    dv = gp.T @ u32 - g32[:, None] * u32
+    dbias = torch.sum(gp, dim=0) - g32
+    return du, dv, dbias, -dbias
+
+
+def ema_segment_sum_ref(v: torch.Tensor, assignment: torch.Tensor,
+                        weight: torch.Tensor, k: int,
+                        dtype: torch.dtype = torch.float32
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 7-8 batch reductions: w_add[k] = sum_{a_j = k} wt_j v_j (K, d),
+    c_add[k] = sum_{a_j = k} wt_j (K,).  Rows assigned outside [0, K)
+    add nothing, as in ``segment_sum``.  ``dtype=torch.float64`` gives a
+    near-exact sum to measure a float32 result's error against."""
+    v32 = v.to(dtype)
+    w32 = weight.to(dtype)
+    a = assignment.long()
+    keep = (a >= 0) & (a < k)
+    w_add = torch.zeros((k, v.shape[1]), dtype=dtype, device=v.device)
+    c_add = torch.zeros((k,), dtype=dtype, device=v.device)
+    w_add.index_add_(0, a[keep], (w32[:, None] * v32)[keep])
+    c_add.index_add_(0, a[keep], w32[keep])
+    return w_add, c_add
+
+
+def ema_segment_sum_sliced_ref(v: torch.Tensor, assignment: torch.Tensor,
+                               weight: torch.Tensor, k: int, slices: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ema_segment_sum_ref`` in the card kernel's summation order, on
+    the CPU: the rows cut into ``slices`` equal slices, each slice's sums
+    taken in row order (the CPU's ``index_add_``), the slices' sums added
+    in slice order.  The result is on the CPU."""
+    v, a, w = v.cpu(), assignment.cpu().long(), weight.cpu()
+    wv = w[:, None] * v
+    keep = (a >= 0) & (a < k)
+    per = -(-v.shape[0] // slices)
+    tw, tc = torch.zeros((k, v.shape[1])), torch.zeros((k,))
+    for s in range(slices):
+        rows = slice(s * per, (s + 1) * per)
+        m = keep[rows]
+        tw = tw + torch.zeros_like(tw).index_add_(0, a[rows][m], wv[rows][m])
+        tc = tc + torch.zeros_like(tc).index_add_(0, a[rows][m], w[rows][m])
+    return tw, tc

@@ -17,16 +17,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import SVQConfig
 from repro_torch.core import assignment_store as astore
 from repro_torch.core import retriever
-
-
-def _to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    if isinstance(tree, tuple):
-        return type(tree)(*(_to(v, device) for v in tree))
-    return tree.to(device)
+from repro_torch.utils.tree import to_device as _to
 
 
 class RetrievalService:

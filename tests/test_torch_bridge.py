@@ -235,6 +235,7 @@ def test_port_service_import_leaves_jax_and_reference_unloaded():
     code = ("import sys\n"
             "import repro_torch.serving.service\n"
             "import repro_torch.bridge\n"
+            "import repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

@@ -198,7 +198,9 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch(rng):
     assert torch.equal(vals, rv) and torch.equal(idx, ri)
     cs, bl, ln = _random_case(rng, 4, 6, b=2)
     t_ops.merge_serve(_t(cs), _t(bl), _t(ln), 2, 8)
-    assert t_ops.LAUNCHES == {"cluster_rank": 0, "merge_serve": 0}
+    assert t_ops.LAUNCHES == {name: 0 for name in (
+        "cluster_rank", "merge_serve", "vq_assign", "inbatch_softmax",
+        "inbatch_softmax_bwd", "ema_segment_sum")}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -247,7 +247,9 @@ def test_port_alone_serves_at_smoke_config():
     assert out["valid"].all()
     assert ((out["item_ids"] >= 0) & (out["item_ids"] < cfg.n_items)).all()
     assert (np.diff(out["scores"], axis=1) <= 0).all()
-    assert t_ops.LAUNCHES == {"cluster_rank": 0, "merge_serve": 0}
+    assert t_ops.LAUNCHES == {name: 0 for name in (
+        "cluster_rank", "merge_serve", "vq_assign", "inbatch_softmax",
+        "inbatch_softmax_bwd", "ema_segment_sum")}
 
 
 def test_unported_options_raise(trained):
