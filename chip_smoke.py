@@ -3,19 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the five hand-written kernel sources from
+Builds the six hand-written kernel sources from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at once) and
 holds each kernel to its plain PyTorch version at the shapes of the full
 ``SVQConfig()`` (K=16384 clusters, d=64; serve: C=128, L=256, chunk=8,
-S=512, batches of 512 users; train: batches of 65536).  Then it serves
-full-width batches through ``RetrievalService``, trains 3 full-width steps
-with ``train_svq`` through the train kernels, serves a batch from the
-trained state, and runs a small model on the card and on the CPU, for
-serving and for 3 train steps, to compare them.  The launch counters show
-that each path went through its kernels.  Prints one line per phase, then
-a JSON line of per-kernel numbers, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Exits nonzero, without that last
-line, if there is no card or any phase fails.
+S=512, batches of 512 users over 2,097,152 items; train: batches of
+65536).  Then it serves full-width batches through ``RetrievalService``
+unfused, fused (``fused_gather_rank``) and on 4 logical shards (unfused
+and fused), each held to the unfused single-device service's outputs;
+trains 3 full-width steps with ``train_svq`` through the train kernels,
+serves a batch from the trained state, and runs a small model on the
+card and on the CPU, for serving (unfused, fused, sharded) and for 3
+train steps, to compare them.  The launch counters, set to 0 before each
+path and read after it, show that each path went through its kernels.
+Prints one line per phase, then a JSON line of per-kernel numbers, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Exits nonzero, without that last line, if there is no card or any phase
+fails.
 """
 from __future__ import annotations
 
@@ -43,12 +47,14 @@ SEED = 0
 TRAIN_STEPS = 3
 TRAIN_BATCH = 65536  # impressions (and candidates) per step: train_batch
 SOFTMAX_CHECK_B = (TRAIN_BATCH, 16384, 1000)   # kernel vs plain
+N_SHARDS = 4         # logical shards of the sharded serve path
 SERVE_KERNELS = ("cluster_rank", "merge_serve")
 # launches of each train kernel in one train step (n_tasks = 1)
 TRAIN_KERNELS = {"vq_assign": 2, "inbatch_softmax": 2,
                  "inbatch_softmax_bwd": 2, "ema_segment_sum": 1}
 # record_function ranges of the port, not kernels
-ANNOTATIONS = SERVE_KERNELS + ("vq_assign", "inbatch_softmax",
+ANNOTATIONS = SERVE_KERNELS + ("fused_gather_rank", "stage_merge",
+                               "vq_assign", "inbatch_softmax",
                                "ema_segment_sum", "index_sort")
 # Adam's learning rate in the SVQ trainer (launch/train.py _svq_opt)
 ADAM_LR = 1e-3
@@ -200,6 +206,207 @@ def check_merge_serve(ops, ref, cfg, dev, gen, items_per_cluster) -> dict:
                 bound_ms=t_bound, bound_by=by, library_ms=None)
 
 
+def check_merge_serve_ds(ops, ref, cfg, dev, gen, items_per_cluster) -> dict:
+    """The ds launch vs plain and vs the merge_serve kernel, bitwise, at
+    the serve shape and with L < chunk."""
+    b, c, l = BATCH, cfg.clusters_per_query, items_per_cluster
+    chunk, target = cfg.chunk_size, cfg.candidates_out
+
+    def case(l):
+        cs = torch.randn((b, c), generator=gen, device=dev)
+        bl = torch.randn((b, c, l), generator=gen, device=dev)
+        bl = torch.sort(bl, dim=-1, descending=True).values.contiguous()
+        ln = torch.randint(0, l + 1, (b, c), generator=gen, device=dev,
+                           dtype=torch.int32)
+        return cs, bl, ln
+
+    for width in (l, chunk // 2):
+        args = case(width)
+        pos, sc = ops.merge_serve_ds(*args, chunk, target)
+        for name, (rp, rs) in (
+                ("plain", ref.merge_serve_ds_ref(*args, chunk, target)),
+                ("merge_serve", ops.merge_serve(*args, chunk, target))):
+            torch.cuda.synchronize()
+            if not (torch.equal(pos, rp) and
+                    torch.equal(sc.view(torch.int32), rs.view(torch.int32))):
+                raise AssertionError(f"merge_serve_ds differs from {name} "
+                                     f"at L={width}")
+    args = case(l)
+    pos, sc = ops.merge_serve_ds(*args, chunk, target)
+    rp, rs = ref.merge_serve_ds_ref(*args, chunk, target)
+    torch.cuda.synchronize()
+    max_err = float((sc - rs).abs().max())
+    phase("merge_serve_ds", bitwise_plain_and_merge_serve=True,
+          checked_l=(l, chunk // 2), max_abs_err=max_err)
+    # the two launches of one body on the same inputs, in turns
+    ds_ms, ms_ms = [], []
+    for timed in (ds_ms, ms_ms, ms_ms, ds_ms):
+        fn = ops.merge_serve_ds if timed is ds_ms else ops.merge_serve
+        timed.append(time_ms(lambda: fn(*args, chunk, target), iters=50))
+    ms = statistics.median(ds_ms)
+    plain_ms = time_ms(lambda: ref.merge_serve_ds_ref(*args, chunk, target),
+                       iters=5, warmup=1)
+    # the same work as merge_serve on the same inputs (its bound)
+    valid = pos >= 0
+    n_valid = int(valid.sum())
+    n_pops = int((valid & ((pos % l) % chunk == 0)).sum())
+    t_bound, by = bound_ms(12 * b * c + 4 * n_valid + 8 * b * target,
+                           n_pops * c)
+    phase("merge_serve_ds_time", ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
+          ds_ms_in_turns=ds_ms, merge_serve_ms_in_turns=ms_ms)
+    return dict(name="merge_serve_ds", route="cuda",
+                source="src/repro_torch/kernels/csrc/merge_serve.cu",
+                replaces="src/repro/kernels/merge_serve.py:261",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=t_bound, bound_by=by, library_ms=None)
+
+
+def flat_index_case(gen, dev, b, k, c, l, d, n, integer=False):
+    """A flat serving index of K clusters over N items, each cluster's
+    biases sorted descending, and C clusters drawn for each of B queries
+    -> the fused kernel's arguments (u, cs, starts, lengths, limits,
+    bias, ids, emb); every lane's limit is N - 1."""
+    def draw(*shape):
+        if integer:
+            return torch.randint(-2, 3, shape, generator=gen,
+                                 device=dev).float()
+        return torch.randn(shape, generator=gen, device=dev)
+
+    cuts = torch.randint(0, n + 1, (k - 1,), generator=gen, device=dev)
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.sort(cuts).values,
+                      torch.full((1,), n, dtype=torch.int64, device=dev)])
+    counts = offs[1:] - offs[:-1]
+    seg = torch.repeat_interleave(torch.arange(k, device=dev), counts)
+    bias = draw(n)
+    order = torch.argsort(-bias, stable=True)
+    order = order[torch.argsort(seg[order], stable=True)]
+    bias = bias[order].contiguous()
+    cl = torch.randint(0, k, (b, c), generator=gen, device=dev)
+    cs = torch.sort(draw(b, c), dim=1, descending=True).values.contiguous()
+    return [draw(b, d), cs, offs[cl].int(), counts[cl].clamp(max=l).int(),
+            torch.full((b, c), n - 1, dtype=torch.int32, device=dev), bias,
+            torch.randperm(n, generator=gen, device=dev).int(),
+            (draw(n, d) * (1.0 if integer else 0.1)).contiguous()]
+
+
+def fused_vs_plain(ops, ref, args, chunk, target, l, want_args=None,
+                   exact_bitwise=False) -> float:
+    """Kernel on ``args`` vs plain on ``want_args`` (default the same):
+    pos, merge_scores, cand_ids bitwise, exact_scores within rtol 1e-5 /
+    atol 1e-5 (bitwise with ``exact_bitwise``).  -> max |exact err|."""
+    got = ops.fused_gather_rank(*args, chunk, target, l)
+    want = ref.fused_gather_rank_ref(*(want_args or args), chunk, target, l)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("pos", "merge_scores", "cand_ids"), got, want):
+        if not torch.equal(a.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"fused_gather_rank {name} differs from "
+                                 f"the plain version")
+    a, w = got[3], want[3]
+    if exact_bitwise:
+        if not torch.equal(a.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError("fused_gather_rank exact_scores not "
+                                 "bitwise on integer inputs")
+    elif not torch.allclose(a, w, rtol=1e-5, atol=1e-5):
+        raise AssertionError("fused_gather_rank exact_scores differ from "
+                             "the plain version beyond rtol 1e-5, atol 1e-5")
+    return float((a - w).abs().max())
+
+
+def check_fused_gather_rank(ops, ref, cfg, dev, gen, items_per_cluster
+                            ) -> dict:
+    """Kernel vs plain at the serve shape over a flat index of
+    2,097,152 items; on integer inputs (all four outputs bitwise); with
+    per-lane limits at 4 shards' ends and lists that run past them; with
+    NaN in every lane past a cluster's length; with N < chunk."""
+    b, c, l = BATCH, cfg.clusters_per_query, items_per_cluster
+    k, d, n = cfg.n_clusters, cfg.embed_dim, cfg.n_items
+    chunk, target = cfg.chunk_size, cfg.candidates_out
+    args = flat_index_case(gen, dev, b, k, c, l, d, n)
+    max_err = fused_vs_plain(ops, ref, args, chunk, target, l)
+    ints = flat_index_case(gen, dev, b, k, c, l, d, n, integer=True)
+    fused_vs_plain(ops, ref, ints, chunk, target, l, exact_bitwise=True)
+    del ints
+    # sharded limits: 4 shards of N/4 slots, starts in each shard's last
+    # half, so many lists run past their shard's end
+    cap = n // N_SHARDS
+    owner = torch.randint(0, N_SHARDS, (b, c), generator=gen, device=dev)
+    local = torch.randint(cap - 2 * l, cap + 1, (b, c), generator=gen,
+                          device=dev)
+    sharded = list(args)
+    sharded[2] = (owner * cap + local).int()
+    sharded[4] = (owner * cap + cap - 1).int()
+    sharded[3] = torch.randint(0, l + 1, (b, c), generator=gen, device=dev,
+                               dtype=torch.int32)
+    past = int(((sharded[2] + sharded[3]).long() > sharded[4].long() + 1)
+               .sum())
+    max_err = max(max_err, fused_vs_plain(ops, ref, sharded, chunk, target,
+                                          l))
+    # NaN dead tail: C slabs of L items, lengths shared by all queries
+    slab_n = c * l + 3
+    lens = torch.randint(0, l + 1, (c,), generator=gen, device=dev)
+    lane = torch.arange(slab_n, device=dev)
+    dead = ((lane < c * l)
+            & (lane % l >= lens[(lane // l).clamp(max=c - 1)]))
+    clean = torch.randn(slab_n, generator=gen, device=dev)
+    clean[:c * l] = torch.sort(clean[:c * l].view(c, l), dim=1,
+                               descending=True).values.reshape(-1)
+    poisoned = torch.where(dead, float("nan"), clean)
+    nan_args = [args[0], args[1],
+                (torch.arange(c, device=dev, dtype=torch.int32) * l)
+                .expand(b, c).contiguous(),
+                lens.int().expand(b, c).contiguous(),
+                torch.full((b, c), slab_n - 1, dtype=torch.int32,
+                           device=dev), poisoned, args[6][:slab_n].contiguous(),
+                args[7][:slab_n].contiguous()]
+    want = list(nan_args)
+    want[5] = clean
+    max_err = max(max_err, fused_vs_plain(ops, ref, nan_args, chunk, target,
+                                          l, want_args=want))
+    # N < chunk
+    tiny = [args[0][:3], args[1][:3, :2].contiguous(),
+            torch.zeros((3, 2), dtype=torch.int32, device=dev),
+            torch.full((3, 2), 3, dtype=torch.int32, device=dev),
+            torch.full((3, 2), 2, dtype=torch.int32, device=dev),
+            torch.sort(args[5][:3], descending=True).values,
+            args[6][:3].contiguous(), args[7][:3].contiguous()]
+    fused_vs_plain(ops, ref, tiny, chunk, 10, 5)
+    phase("fused_gather_rank", shape=(b, c, l, chunk, target, d, n),
+          max_abs_err_exact=max_err, integer_inputs_bitwise=True,
+          sharded_lists_past_shard_end=past, nan_lanes=int(dead.sum()),
+          n_below_chunk=True)
+    ms = time_ms(lambda: ops.fused_gather_rank(*args, chunk, target, l),
+                 iters=50)
+    plain_ms = time_ms(lambda: ref.fused_gather_rank_ref(*args, chunk,
+                                                         target, l),
+                       iters=5, warmup=1)
+    # what these inputs need: u, the four (B, C) arrays, the bias of every
+    # non-empty cluster's first item, and for each distinct emitted
+    # address its bias, id and embedding row; the (B, S) outputs.
+    # Operations: d FMAs per emitted item, one argmax over C per pop.
+    pos = ops.fused_gather_rank(*args, chunk, target, l)[0].long()
+    valid = pos >= 0
+    pc = pos.clamp(min=0)
+    st = torch.gather(args[2].long(), 1, pc // l)
+    lim = torch.gather(args[4].long(), 1, pc // l)
+    addr = torch.minimum(st + pc % l, lim)[valid]
+    heads = torch.minimum(args[2].long(), args[4].long())[args[3] > 0]
+    n_rows = int(torch.unique(addr).numel())
+    n_bias = int(torch.unique(torch.cat([addr, heads])).numel())
+    n_pops = int((valid & ((pos % l) % chunk == 0)).sum())
+    n_bytes = (4 * b * d + 16 * b * c + 4 * n_bias + (4 + 4 * d) * n_rows
+               + 16 * b * target)
+    t_bound, by = bound_ms(n_bytes, 2 * d * int(valid.sum()) + n_pops * c)
+    phase("fused_gather_rank_time", ms=ms, plain_ms=plain_ms,
+          bound_ms=t_bound, bound_bytes=n_bytes, distinct_rows=n_rows,
+          pops=n_pops)
+    return dict(name="fused_gather_rank", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_gather_rank.cu",
+                replaces="src/repro/kernels/merge_serve.py:351",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=t_bound, bound_by=by, library_ms=None)
+
+
 def fill_store(retriever, astore, params, state, cfg, dev, gen):
     """Every item id through the item tower, into clusters drawn at random,
     written to the store."""
@@ -249,7 +456,48 @@ def check_outputs(out, cfg, b) -> None:
         raise AssertionError("ranked ids are not the merged candidates")
 
 
-def main_path(retriever, astore, ops, RetrievalService, cfg, dev):
+def serve_batches(svc, batches):
+    """Serve ``batches`` after a warm-up call on the first, with the launch
+    counts set to 0 just before -> (outputs, host ms per batch, launches,
+    warm-up ms)."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    svc.serve_batch(batches[0])
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    ops.reset_launches()
+    times, outs = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        outs.append(svc.serve_batch(batch))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return outs, times, dict(ops.LAUNCHES), warmup_ms
+
+
+def check_launches(launches, want, what) -> None:
+    """Every count as ``want`` says (0 where it names none)."""
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            raise AssertionError(f"{name} launched {count} times in {what}, "
+                                 f"not {want.get(name, 0)}")
+
+
+def same_outputs(want, got, what) -> None:
+    """Candidates, validity, merge and ranking scores bitwise; the exact
+    Eq. 11 scores within rtol 1e-5 / atol 1e-5 (summation order)."""
+    for k in want:
+        a, b = want[k], got[k]
+        if k == "exact_scores":
+            if not np.allclose(a, b, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{what}: exact_scores not close")
+        elif not np.array_equal(a.view(np.int32) if a.dtype == np.float32
+                                else a,
+                                b.view(np.int32) if b.dtype == np.float32
+                                else b):
+            raise AssertionError(f"{what}: {k} differs from the unfused "
+                                 f"single-device service")
+
+
+def main_path(retriever, astore, RetrievalService, cfg, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -265,25 +513,12 @@ def main_path(retriever, astore, ops, RetrievalService, cfg, dev):
     n_indexed = int(svc.index.counts.sum())
     rng = np.random.default_rng(SEED)
     batches = [request_batch(cfg, rng, BATCH) for _ in range(N_BATCHES)]
-    t0 = time.perf_counter()
-    svc.serve_batch(request_batch(cfg, rng, BATCH))   # first call: warm-up
-    warmup_ms = (time.perf_counter() - t0) * 1e3
-    ops.reset_launches()
-    times = []
-    outs = []
-    for batch in batches:
-        t0 = time.perf_counter()
-        outs.append(svc.serve_batch(batch))
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(ops.LAUNCHES)
-    for name, count in launches.items():
-        want = N_BATCHES if name in SERVE_KERNELS else 0
-        if count != want:
-            raise AssertionError(f"{name} launched {count} times in "
-                                 f"{N_BATCHES} serve batches, not {want}")
+    outs, times, launches, warmup_ms = serve_batches(svc, batches)
+    check_launches(launches, {name: N_BATCHES for name in SERVE_KERNELS},
+                   f"{N_BATCHES} serve batches")
     for out in outs:
         check_outputs(out, cfg, BATCH)
-    profile_batch(svc, batches[0])
+    prof = profile_batch(svc, batches[0])
     phase("main_path", batches=N_BATCHES, batch=BATCH,
           ms_per_batch_median=statistics.median(times),
           ms_per_batch=[round(t, 3) for t in times], warmup_ms=warmup_ms,
@@ -291,11 +526,91 @@ def main_path(retriever, astore, ops, RetrievalService, cfg, dev):
           items_indexed=n_indexed,
           max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
           launches=launches)
-    return launches, svc
+    return dict(launches=launches, svc=svc, params=params, state=state,
+                batches=batches, outs=outs, ms_per_batch=times, profile=prof)
 
 
-def profile_batch(svc, batch) -> None:
-    """One more batch under torch.profiler: device time by name."""
+def fused_path(RetrievalService, cfg, dev, main) -> dict:
+    """RetrievalService(fused=True) on the main path's batches: the
+    unfused service's outputs, cluster_rank and fused_gather_rank once a
+    batch; stage 2's device time against the unfused service's."""
+    svc = RetrievalService(cfg, main["params"], main["state"], fused=True,
+                           device=dev)
+    outs, times, launches, _ = serve_batches(svc, main["batches"])
+    check_launches(launches, {"cluster_rank": N_BATCHES,
+                              "fused_gather_rank": N_BATCHES},
+                   f"{N_BATCHES} fused serve batches")
+    for want, got in zip(main["outs"], outs):
+        same_outputs(want, got, "fused service")
+    prof = profile_batch(svc, main["batches"][0], "fused_profile")
+    phase("fused_path", batches=N_BATCHES, batch=BATCH,
+          ms_per_batch_median=statistics.median(times),
+          ms_per_batch=[round(t, 3) for t in times],
+          unfused_ms_per_batch_median=statistics.median(
+              main["ms_per_batch"]),
+          stage2_device_ms=prof["stage_merge"],
+          unfused_stage2_device_ms=main["profile"]["stage_merge"],
+          outputs_equal_unfused=True, launches=launches)
+    return launches
+
+
+def sharded_path(RetrievalService, cfg, dev, main) -> dict:
+    """RetrievalService(n_shards=4), unfused and fused, on the main path's
+    batches: the single-device unfused outputs bitwise, cluster_rank once
+    a shard and the merge kernel once a batch."""
+    from repro_torch.serving.sharding import shard_serving_index
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shard_serving_index(main["svc"].index, cfg.n_clusters, N_SHARDS)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    all_launches = {}
+    for fused in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc = RetrievalService(cfg, main["params"], main["state"],
+                               fused=fused, n_shards=N_SHARDS, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        outs, times, launches, _ = serve_batches(svc, main["batches"])
+        merge = "fused_gather_rank" if fused else "merge_serve"
+        check_launches(launches, {"cluster_rank": N_SHARDS * N_BATCHES,
+                                  merge: N_BATCHES},
+                       f"{N_BATCHES} sharded serve batches (fused={fused})")
+        for want, got in zip(main["outs"], outs):
+            same_outputs(want, got, f"sharded service (fused={fused})")
+        phase("sharded_path", fused=fused, shards=N_SHARDS,
+              capacity=svc.index.capacity, batches=N_BATCHES, batch=BATCH,
+              ms_per_batch_median=statistics.median(times),
+              ms_per_batch=[round(t, 3) for t in times],
+              build_index_and_shard_s=build_s, shard_only_s=shard_s,
+              max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+              outputs_equal_single_device=True, launches=launches)
+        all_launches[fused] = launches
+        del svc
+    return all_launches
+
+
+def range_device_ms(prof, name) -> float:
+    """Busy device time of the ``record_function`` range ``name``: the
+    kernels and copies that run inside the range's span on the device
+    (its device-side annotation event).  The span itself would also count
+    the gaps between them, which on this host-bound path are most of it;
+    the kernels the port launches through ctypes are not attributed to a
+    host-side range, so the device timeline is read instead."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range for e in dev if e.name == name]
+    return sum(e.time_range.elapsed_us() for e in dev
+               if e.name not in ANNOTATIONS and any(
+                   s.start <= e.time_range.start and e.time_range.end <= s.end
+                   for s in spans)) / 1e3
+
+
+def profile_batch(svc, batch, label="profile") -> dict:
+    """One more batch under torch.profiler: device time by name and by
+    serve stage."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -304,12 +619,13 @@ def profile_batch(svc, batch) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     busy_ms, top = device_breakdown(prof)
-    stages = {e.key: round(dev_us(e, False) / 1e3, 4)
-              for e in prof.key_averages()
-              if e.key in ("cluster_rank", "merge_serve")}
-    phase("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    stages = {name: round(range_device_ms(prof, name), 4)
+              for name in ("cluster_rank", "stage_merge", "merge_serve",
+                           "fused_gather_rank")}
+    phase(label, wall_ms=wall_ms, device_busy_ms=busy_ms,
           idle_share=1 - busy_ms / wall_ms, stage_device_ms=stages,
           top_kernels_ms=top)
+    return stages
 
 
 def dev_us(evt, self_only):
@@ -338,21 +654,30 @@ def device_breakdown(prof, n_top: int = 10):
 
 def small_reference(retriever, astore, RetrievalService, smoke, dev) -> None:
     """The same small model served on the card and by the plain versions
-    on the CPU: equal ids, close scores."""
+    on the CPU, unfused, fused and on 4 logical shards (unfused and
+    fused): equal ids, close scores."""
     cfg = smoke()
     gen = torch.Generator().manual_seed(SEED)
     params, state = retriever.init(gen, cfg, device="cpu")
     state = fill_store(retriever, astore, params, state, cfg, "cpu", gen)
     batch = request_batch(cfg, np.random.default_rng(SEED), 32)
     ref = RetrievalService(cfg, params, state, device="cpu").serve_batch(batch)
-    got = RetrievalService(cfg, params, state, device=dev).serve_batch(batch)
-    for k in ("index_ids", "item_ids", "valid"):
-        if not np.array_equal(ref[k], got[k]):
-            raise AssertionError(f"small model: {k} differ from the CPU run")
-    for k in ("scores", "merge_scores", "exact_scores"):
-        if not np.allclose(ref[k], got[k], rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"small model: {k} not close to the CPU run")
-    phase("small_reference", ids_equal=True, scores_close="rtol=atol=1e-5")
+    variants = {"unfused": {}, "fused": dict(fused=True),
+                "sharded": dict(n_shards=N_SHARDS),
+                "sharded_fused": dict(n_shards=N_SHARDS, fused=True)}
+    for name, kw in variants.items():
+        got = RetrievalService(cfg, params, state, device=dev,
+                               **kw).serve_batch(batch)
+        for k in ("index_ids", "item_ids", "valid"):
+            if not np.array_equal(ref[k], got[k]):
+                raise AssertionError(f"small model, {name}: {k} differ from "
+                                     f"the CPU run")
+        for k in ("scores", "merge_scores", "exact_scores"):
+            if not np.allclose(ref[k], got[k], rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"small model, {name}: {k} not close to "
+                                     f"the CPU run")
+    phase("small_reference", variants=",".join(variants), ids_equal=True,
+          scores_close="rtol=atol=1e-5")
 
 
 def near_tie_ok(scores_of, got, want, rel=1e-5):
@@ -810,13 +1135,20 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = [check_cluster_rank(ops, ref, cfg, dev, gen),
                check_merge_serve(ops, ref, cfg, dev, gen, 256),
+               check_merge_serve_ds(ops, ref, cfg, dev, gen, 256),
+               check_fused_gather_rank(ops, ref, cfg, dev, gen, 256),
                check_vq_assign(ops, ref, cfg, dev, gen),
                *check_inbatch_softmax(ops, ref, cfg, dev, gen),
                check_ema_segment_sum(ops, ref, cfg, dev, gen)]
     torch.cuda.empty_cache()
 
-    serve_launches, svc = main_path(retriever, astore, ops, RetrievalService,
-                                    cfg, dev)
+    main = main_path(retriever, astore, RetrievalService, cfg, dev)
+    serve_launches = main["launches"]
+    fused_launches = fused_path(RetrievalService, cfg, dev, main)
+    sharded_path(RetrievalService, cfg, dev, main)
+    svc = main["svc"]
+    del main
+    torch.cuda.empty_cache()
     train_launches, params, index = train_path(ops, cfg, dev)
     serve_trained(svc, params, index, cfg)
     del svc, params, index
@@ -824,13 +1156,20 @@ def main() -> int:
     small_reference(retriever, astore, RetrievalService, smoke, dev)
     small_train_reference(smoke, dev)
 
+    # launches on the path that runs each kernel: the unfused serve path,
+    # the fused serve path, the train path; merge_serve_ds has no path
+    path_of = {"cluster_rank": ("serve batch", serve_launches, N_BATCHES),
+               "merge_serve": ("serve batch", serve_launches, N_BATCHES),
+               "fused_gather_rank": ("fused serve batch", fused_launches,
+                                     N_BATCHES),
+               "merge_serve_ds": ("none: no path of the port or of the "
+                                  "reference runs it", None, 1)}
     for k in kernels:
-        serve = k["name"] in SERVE_KERNELS
-        k["launches"] = (serve_launches if serve else
-                         train_launches)[k["name"]]
-        k["launches_per"] = "serve batch" if serve else "train step"
-        k["launches_per_unit"] = k["launches"] / (N_BATCHES if serve else
-                                                  TRAIN_STEPS)
+        per, launches, units = path_of.get(
+            k["name"], ("train step", train_launches, TRAIN_STEPS))
+        k["launches"] = launches[k["name"]] if launches else 0
+        k["launches_per"] = per
+        k["launches_per_unit"] = k["launches"] / units
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per", "launches_per_unit", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,9 +1,9 @@
 """Numpy bridge between the JAX package's state and the port's tensors.
 
 The reference's params pytree (dicts and lists of arrays), its
-``IndexState`` and its ``ServingIndex`` are handed over as numpy arrays
-(``jax.device_get``) and come out as the port's tensors on ``device``;
-``to_numpy`` turns the port's values back into numpy.  Reference objects
+``IndexState``, its ``ServingIndex`` and its ``ShardedServingIndex`` are
+handed over as numpy arrays (``jax.device_get``) and come out as the
+port's tensors on ``device``; ``to_numpy`` turns the port's values back into numpy.  Reference objects
 are read by field name only, so this module imports neither JAX nor the
 reference package.
 """
@@ -18,6 +18,7 @@ from repro_torch.core import assignment_store as astore
 from repro_torch.core import freq_estimator as freq
 from repro_torch.core import vq
 from repro_torch.core.retriever import IndexState
+from repro_torch.serving.sharding import ShardedServingIndex
 
 
 def tensor(x, device="cpu") -> torch.Tensor:
@@ -53,6 +54,15 @@ def serving_index_to_torch(index: Any, device="cpu") -> astore.ServingIndex:
     return astore.ServingIndex(
         *(tensor(getattr(index, f), device)
           for f in astore.ServingIndex._fields))
+
+
+def sharded_serving_index_to_torch(sidx: Any, device="cpu"
+                                   ) -> ShardedServingIndex:
+    """Reference ``ShardedServingIndex`` -> port's, field by field (its
+    0-d ``n_real`` and ``n_items`` stay 0-d int32 tensors)."""
+    return ShardedServingIndex(
+        *(tensor(getattr(sidx, f), device)
+          for f in ShardedServingIndex._fields))
 
 
 def to_numpy(tree: Any) -> Any:

@@ -108,3 +108,84 @@ def merge_sort_serve(cluster_scores: torch.Tensor,
     pos = torch.gather(pos, 1, order)[:, :target].to(torch.int32)
     sc = torch.gather(sc, 1, order)[:, :target]
     return pos, sc
+
+
+def fused_gather_rank(u: torch.Tensor, cluster_scores: torch.Tensor,
+                      starts: torch.Tensor, lengths: torch.Tensor,
+                      limits: torch.Tensor, bias_flat: torch.Tensor,
+                      ids_flat: torch.Tensor, emb_flat: torch.Tensor,
+                      chunk: int, target: int, l: int, exact: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Batched fused Alg. 1: merge + candidate gather + Eq. 11 score.
+
+    u: (B, d); cluster_scores, starts, lengths, limits: (B, C), ``starts``
+    flat addresses into the index arrays and ``limits`` each lane's clamp
+    bound; bias_flat, ids_flat: (N,); emb_flat: (N, d).  Each pop reads
+    its chunk straight from the flat arrays at ``min(start_c + idx,
+    limit_c)`` (no (B, C, L) slab) and scores it against ``u``.  Returns
+    (pos, merge_scores, cand_ids, exact_scores), each (B, target), with
+    pos encoded ``c * l + idx`` like ``merge_sort_serve``; invalid lanes
+    are (-1, NEG, the id at the first cluster's first slot, NEG).
+    """
+    B, C = cluster_scores.shape
+    dev = cluster_scores.device
+    cs = cluster_scores.to(torch.float32)
+    st = starts.to(torch.int64)
+    ln = lengths.to(torch.int64)
+    lim = limits.to(torch.int64)
+    bias = bias_flat.to(torch.float32)
+    emb = emb_flat.to(torch.float32)
+    u32 = u.to(torch.float32)
+    rows = torch.arange(B, device=dev)
+    ar = torch.arange(chunk, device=dev)
+    ptr = torch.zeros((B, C), dtype=torch.int64, device=dev)
+    n_out = torch.zeros((B,), dtype=torch.int64, device=dev)
+    head_b = bias[torch.minimum(st, lim)]
+    # invalid lanes report the clip-to-first-slot id of the unfused gather
+    id_clip = ids_flat[torch.minimum(st[:, 0], lim[:, 0])]
+    outs = ([], [], [], [])
+    for _ in range(n_pops(C, chunk, target, exact)):
+        head_s = torch.where(ptr < ln, cs + head_b, NEG)
+        c = torch.argmax(head_s, dim=1)
+        base = ptr[rows, c]
+        idx = base[:, None] + ar                              # (B, chunk)
+        st_c, lim_c = st[rows, c][:, None], lim[rows, c][:, None]
+        addr = torch.minimum(st_c + idx, lim_c)
+        bias_v = bias[addr]
+        dot_v = torch.einsum("bkd,bd->bk", emb[addr], u32)
+        valid = ((idx < ln[rows, c][:, None])
+                 & (head_s[rows, c] > NEG / 2)[:, None]
+                 & (n_out < target)[:, None])
+        outs[0].append(torch.where(valid, c[:, None] * l + idx, -1))
+        outs[1].append(torch.where(valid, cs[rows, c][:, None] + bias_v, NEG))
+        outs[2].append(torch.where(valid, ids_flat[addr], id_clip[:, None]))
+        outs[3].append(torch.where(valid, dot_v + bias_v, NEG))
+        head_b[rows, c] = bias[torch.minimum(st_c[:, 0] + base + chunk,
+                                             lim_c[:, 0])]
+        ptr[rows, c] += chunk
+        n_out += valid.sum(dim=1)
+    pos, sc, ids, rk = (torch.cat(o, dim=1) for o in outs)
+    order = torch.argsort((pos < 0).to(torch.int8), dim=1, stable=True)
+    keep = order[:, :target]
+    return (torch.gather(pos, 1, keep).to(torch.int32),
+            torch.gather(sc, 1, keep), torch.gather(ids, 1, keep),
+            torch.gather(rk, 1, keep))
+
+
+def full_sort_topk(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
+                   lengths: torch.Tensor, target: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-``target`` over all (cluster, item) pairs (quality ref).
+
+    (..., C), (..., C, L), (..., C) -> ((..., target) flat positions
+    c * L + i, -1 where fewer items exist; (..., target) scores).  Ties go
+    to the lower flat position, as ``lax.top_k`` breaks them.
+    """
+    L = bias_lists.shape[-1]
+    combined = cluster_scores[..., None] + bias_lists
+    mask = torch.arange(L, device=bias_lists.device) < lengths[..., None]
+    flat = torch.where(mask, combined, NEG).flatten(-2)
+    sc, pos = torch.sort(flat, dim=-1, descending=True, stable=True)
+    sc, pos = sc[..., :target], pos[..., :target].to(torch.int32)
+    return torch.where(sc > NEG / 2, pos, -1), sc

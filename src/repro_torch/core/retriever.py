@@ -30,9 +30,6 @@ from repro_torch.utils import tree
 
 Params = Dict[str, Any]
 
-_FUSED = ("fused=True is not ported yet: ROADMAP.md item A5 (the fused "
-          "merge+gather+rank serve path, fused_gather_rank)")
-
 
 class IndexState(NamedTuple):
     """Non-gradient state: codebook, PS tables, step counter."""
@@ -270,6 +267,26 @@ def serve_kernel(top_scores: torch.Tensor, bias: torch.Tensor,
                             chunk, target, exact)
 
 
+def fused_gather_rank(u: torch.Tensor, top_scores: torch.Tensor,
+                      starts: torch.Tensor, lengths: torch.Tensor,
+                      limits: torch.Tensor, bias_flat: torch.Tensor,
+                      ids_flat: torch.Tensor, emb_flat: torch.Tensor,
+                      chunk: int, target: int, l: int, exact: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """The fused merge + gather + rank stage over FLAT index arrays:
+    (B, C) cluster scores, flat start addresses, lengths and per-lane
+    clamp limits, the index's (N,) bias and ids and (N, d) embeddings ->
+    (pos, merge_scores, cand_ids, exact_scores), each (B, target).  No
+    (B, C, L) bias slab and no (B, S, d) candidate slab is made."""
+    i32 = torch.int32
+    return kops.fused_gather_rank(
+        u.to(torch.float32).contiguous(), top_scores.contiguous(),
+        starts.to(i32).contiguous(), lengths.to(i32).contiguous(),
+        limits.to(i32).contiguous(), bias_flat, ids_flat, emb_flat, chunk,
+        target, l, exact)
+
+
 def serve_stage_rank(params: Params, state: IndexState, cfg: SVQConfig,
                      batch: Dict[str, torch.Tensor], task: int = 0
                      ) -> Dict[str, torch.Tensor]:
@@ -288,9 +305,13 @@ def serve_stage_merge(cfg: SVQConfig, index: astore.ServingIndex,
                       s1: Dict[str, torch.Tensor],
                       items_per_cluster: int = 256,
                       fused: bool = False) -> Dict[str, torch.Tensor]:
-    """Stage 2 of serve: slab fetch + Alg. 1 merge -> candidate ids."""
-    if fused:
-        raise NotImplementedError(_FUSED)
+    """Stage 2 of serve: slab fetch + Alg. 1 merge -> candidate ids.
+
+    ``fused=True`` merges, gathers the candidates and scores them in one
+    kernel over the flat index arrays, with every lane clamped at
+    ``n_items - 1`` as the slab is: pos, merge_scores and cand_ids are
+    bitwise the unfused stage's, exact_scores equal up to summation order.
+    """
     top_scores = s1["top_scores"]
     top_clusters = s1["top_clusters"].long()
     starts = index.offsets[top_clusters].long()               # (B, C)
@@ -298,6 +319,15 @@ def serve_stage_merge(cfg: SVQConfig, index: astore.ServingIndex,
     L = items_per_cluster
     lengths = torch.clamp(counts, max=L)
     S = cfg.candidates_out
+    if fused:
+        limits = torch.full_like(starts, index.n_items - 1)
+        with record_function("fused_gather_rank"):
+            pos, msort_scores, cand_ids, exact_scores = fused_gather_rank(
+                s1["u"], top_scores, starts, lengths, limits,
+                index.item_bias, index.item_ids, index.item_emb,
+                cfg.chunk_size, S, L)
+        return dict(cand_ids=cand_ids, valid=pos >= 0,
+                    merge_scores=msort_scores, exact_scores=exact_scores)
     ar = torch.arange(L, device=starts.device)
     slab = torch.clamp(starts[..., None] + ar, max=index.n_items - 1)
     bias = index.item_bias[slab]                              # (B, C, L)
@@ -350,16 +380,17 @@ def serve(params: Params, state: IndexState, cfg: SVQConfig,
 
     ``batch`` holds ``user_id`` (B,) and ``hist`` (B, H), as tensors or
     numpy arrays; they are moved to ``device`` (``cuda`` unless named),
-    where ``params``, ``state`` and ``index`` must already lie.
+    where ``params``, ``state`` and ``index`` must already lie.  ``fused``
+    selects the slab-free merge + gather + rank stage 2.
     """
-    if fused:
-        raise NotImplementedError(_FUSED)
     device = resolve_device(device)
     if state.vq.w.device.type != device.type:
         raise ValueError(f"index state lies on {state.vq.w.device}, "
                          f"serve runs on {device}")
     tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     s1 = serve_stage_rank(params, state, cfg, tb, task=task)
-    s2 = serve_stage_merge(cfg, index, s1,
-                           items_per_cluster=items_per_cluster)
+    with record_function("stage_merge"):
+        s2 = serve_stage_merge(cfg, index, s1,
+                               items_per_cluster=items_per_cluster,
+                               fused=fused)
     return serve_stage_ranking(params, cfg, s1, s2, task=task)

@@ -20,13 +20,14 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("cluster_rank", "merge_serve", "vq_assign", "inbatch_softmax",
-           "ema_segment_sum")
+KERNELS = ("cluster_rank", "merge_serve", "fused_gather_rank", "vq_assign",
+           "inbatch_softmax", "ema_segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the launch functions: (argtypes, restype)
 _SIGNATURES = {
     "cluster_rank": {
@@ -37,6 +38,14 @@ _SIGNATURES = {
         "merge_serve_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P], _I),
         "merge_serve_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "merge_serve_ds_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _P], _I),
+        "merge_serve_ds_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    },
+    "fused_gather_rank": {
+        "fused_gather_rank_launch": ([_P] * 12 + [_I, _I, _I, _I, _L, _I, _I,
+                                                  _I, _P], _I),
+        "fused_gather_rank_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     },
     "vq_assign": {
         "vq_assign_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),

@@ -14,14 +14,16 @@ import torch
 from repro_torch.core.merge_sort import n_pops
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"cluster_rank": 0, "merge_serve": 0, "vq_assign": 0,
-            "inbatch_softmax": 0, "inbatch_softmax_bwd": 0,
-            "ema_segment_sum": 0}
+LAUNCHES = {"cluster_rank": 0, "merge_serve": 0, "merge_serve_ds": 0,
+            "fused_gather_rank": 0, "vq_assign": 0, "inbatch_softmax": 0,
+            "inbatch_softmax_bwd": 0, "ema_segment_sum": 0}
 
 # dynamic shared memory a block may take on Hopper (sm_90), less each
 # kernel's static shared memory
 _MAX_DYN_SMEM = {"cluster_rank": 232_448 - 4_096,
                  "merge_serve": 232_448 - 16_384,
+                 "merge_serve_ds": 232_448 - 16_384,
+                 "fused_gather_rank": 232_448 - 16_384,
                  "vq_assign": 232_448, "inbatch_softmax": 232_448,
                  "ema_segment_sum": 232_448}
 
@@ -103,15 +105,12 @@ def cluster_rank(u: torch.Tensor, e: torch.Tensor, n: int
     return vals, idx
 
 
-def merge_serve(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
-                lengths: torch.Tensor, chunk: int, target: int,
-                exact: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched Alg. 1: (B,C) fp32, (B,C,L) fp32, (B,C) int32 ->
-    ((B,target) int32 positions c*L+i, (B,target) fp32 scores), padded
-    with (-1, NEG); bitwise equal to the plain version."""
-    if _on_cpu(cluster_scores, bias_lists, lengths):
-        return ref.merge_serve_ref(cluster_scores, bias_lists, lengths,
-                                   chunk, target, exact)
+def _merge_serve(name: str, cluster_scores: torch.Tensor,
+                 bias_lists: torch.Tensor, lengths: torch.Tensor, chunk: int,
+                 target: int, exact: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``name`` (``merge_serve`` or ``merge_serve_ds``: one body,
+    two launches) on CUDA tensors."""
     _check(cluster_scores, "cluster_scores", torch.float32, 2)
     _check(bias_lists, "bias_lists", torch.float32, 3)
     _check(lengths, "lengths", torch.int32, 2)
@@ -122,28 +121,116 @@ def merge_serve(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
                          f"bias_lists {tuple(bias_lists.shape)}, "
                          f"lengths {tuple(lengths.shape)}")
     if not 1 <= c <= 1024 or l < 1 or chunk < 1 or target < 1:
-        raise ValueError(f"merge_serve takes 1 <= C <= 1024, L >= 1, "
-                         f"chunk >= 1, target >= 1; got C={c}, L={l}, "
-                         f"chunk={chunk}, target={target}")
-    pos = torch.empty((b, target), dtype=torch.int32,
-                      device=cluster_scores.device)
-    sc = torch.empty((b, target), dtype=torch.float32,
-                     device=cluster_scores.device)
+        raise ValueError(f"{name} takes 1 <= C <= 1024, L >= 1, chunk >= 1, "
+                         f"target >= 1; got C={c}, L={l}, chunk={chunk}, "
+                         f"target={target}")
+    dev = cluster_scores.device
+    pos = torch.empty((b, target), dtype=torch.int32, device=dev)
+    sc = torch.empty((b, target), dtype=torch.float32, device=dev)
     if b == 0:
         return pos, sc
     lib = build.load("merge_serve")
     steps = n_pops(c, chunk, target, exact)
-    _check_smem("merge_serve", lib.merge_serve_smem_bytes(target, steps),
+    _check_smem(name, getattr(lib, f"{name}_smem_bytes")(target, steps),
                 f"target={target}, {steps} pops")
-    dev = cluster_scores.device
     with torch.cuda.device(dev):
-        code = lib.merge_serve_launch(
+        code = getattr(lib, f"{name}_launch")(
             cluster_scores.data_ptr(), bias_lists.data_ptr(),
             lengths.data_ptr(), pos.data_ptr(), sc.data_ptr(),
             b, c, l, chunk, target, steps, _stream(dev))
-    _raise_on_error(code, "merge_serve")
-    LAUNCHES["merge_serve"] += 1
+    _raise_on_error(code, name)
+    LAUNCHES[name] += 1
     return pos, sc
+
+
+def merge_serve(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
+                lengths: torch.Tensor, chunk: int, target: int,
+                exact: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Alg. 1: (B,C) fp32, (B,C,L) fp32, (B,C) int32 ->
+    ((B,target) int32 positions c*L+i, (B,target) fp32 scores), padded
+    with (-1, NEG); bitwise equal to the plain version."""
+    if _on_cpu(cluster_scores, bias_lists, lengths):
+        return ref.merge_serve_ref(cluster_scores, bias_lists, lengths,
+                                   chunk, target, exact)
+    return _merge_serve("merge_serve", cluster_scores, bias_lists, lengths,
+                        chunk, target, exact)
+
+
+def merge_serve_ds(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
+                   lengths: torch.Tensor, chunk: int, target: int,
+                   exact: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dynamic-slice variant of ``merge_serve``: the same
+    arguments (any L >= 1, also L < chunk) and the same bits."""
+    if _on_cpu(cluster_scores, bias_lists, lengths):
+        return ref.merge_serve_ds_ref(cluster_scores, bias_lists, lengths,
+                                      chunk, target, exact)
+    return _merge_serve("merge_serve_ds", cluster_scores, bias_lists,
+                        lengths, chunk, target, exact)
+
+
+def fused_gather_rank(u: torch.Tensor, cluster_scores: torch.Tensor,
+                      starts: torch.Tensor, lengths: torch.Tensor,
+                      limits: torch.Tensor, bias_flat: torch.Tensor,
+                      ids_flat: torch.Tensor, emb_flat: torch.Tensor,
+                      chunk: int, target: int, l: int, exact: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Fused Alg. 1 merge + candidate gather + Eq. 11 score: u (B,d) fp32;
+    cluster_scores (B,C) fp32; starts, lengths, limits (B,C) int32; the
+    flat index bias_flat (N,) fp32, ids_flat (N,) int32, emb_flat (N,d)
+    fp32 -> (pos (B,target) int32 c*l+i, merge_scores fp32, cand_ids
+    int32, exact_scores fp32).  pos, merge_scores and cand_ids are bitwise
+    the plain version's; exact_scores is u.emb + bias summed in another
+    order.  Addresses min(start + i, limit) must lie in [0, N)."""
+    ts = (u, cluster_scores, starts, lengths, limits, bias_flat, ids_flat,
+          emb_flat)
+    if _on_cpu(*ts):
+        return ref.fused_gather_rank_ref(*ts, chunk, target, l, exact)
+    _check(u, "u", torch.float32, 2)
+    _check(cluster_scores, "cluster_scores", torch.float32, 2)
+    for name, t in (("starts", starts), ("lengths", lengths),
+                    ("limits", limits)):
+        _check(t, name, torch.int32, 2)
+    _check(bias_flat, "bias_flat", torch.float32, 1)
+    _check(ids_flat, "ids_flat", torch.int32, 1)
+    _check(emb_flat, "emb_flat", torch.float32, 2)
+    b, c = cluster_scores.shape
+    n, d = emb_flat.shape
+    if (u.shape != (b, d) or starts.shape != (b, c)
+            or lengths.shape != (b, c) or limits.shape != (b, c)
+            or bias_flat.shape != (n,) or ids_flat.shape != (n,)):
+        raise ValueError(
+            f"shapes disagree: u {tuple(u.shape)}, cluster_scores {(b, c)}, "
+            f"starts {tuple(starts.shape)}, lengths {tuple(lengths.shape)}, "
+            f"limits {tuple(limits.shape)}, bias_flat "
+            f"{tuple(bias_flat.shape)}, ids_flat {tuple(ids_flat.shape)}, "
+            f"emb_flat {(n, d)}")
+    if (not 1 <= c <= 1024 or not 1 <= n < 2 ** 31 or d < 1 or l < 1
+            or chunk < 1 or target < 1):
+        raise ValueError(f"fused_gather_rank takes 1 <= C <= 1024, "
+                         f"1 <= N < 2**31, d, l, chunk, target >= 1; got "
+                         f"C={c}, N={n}, d={d}, l={l}, chunk={chunk}, "
+                         f"target={target}")
+    dev = u.device
+    pos = torch.empty((b, target), dtype=torch.int32, device=dev)
+    sc = torch.empty((b, target), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, target), dtype=torch.int32, device=dev)
+    rk = torch.empty((b, target), dtype=torch.float32, device=dev)
+    if b == 0:
+        return pos, sc, ids, rk
+    lib = build.load("fused_gather_rank")
+    steps = n_pops(c, chunk, target, exact)
+    _check_smem("fused_gather_rank",
+                lib.fused_gather_rank_smem_bytes(target, steps, d),
+                f"target={target}, {steps} pops, d={d}")
+    with torch.cuda.device(dev):
+        code = lib.fused_gather_rank_launch(
+            *(t.data_ptr() for t in ts), pos.data_ptr(), sc.data_ptr(),
+            ids.data_ptr(), rk.data_ptr(), b, c, l, d, n, chunk, target,
+            steps, _stream(dev))
+    _raise_on_error(code, "fused_gather_rank")
+    LAUNCHES["fused_gather_rank"] += 1
+    return pos, sc, ids, rk
 
 
 def vq_assign(v: torch.Tensor, e: torch.Tensor, r: torch.Tensor

@@ -34,6 +34,26 @@ def merge_serve_ref(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
                                        chunk, target, exact)
 
 
+# The reference promises that merge_serve_ds returns the bits of
+# merge_serve, for every L (its wrapper pads L < chunk up to chunk).
+merge_serve_ds_ref = merge_serve_ref
+
+
+def fused_gather_rank_ref(u: torch.Tensor, cluster_scores: torch.Tensor,
+                          starts: torch.Tensor, lengths: torch.Tensor,
+                          limits: torch.Tensor, bias_flat: torch.Tensor,
+                          ids_flat: torch.Tensor, emb_flat: torch.Tensor,
+                          chunk: int, target: int, l: int,
+                          exact: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    """Fused merge + gather + Eq. 11 score: the batched loop of pops."""
+    from repro_torch.core import merge_sort
+    return merge_sort.fused_gather_rank(u, cluster_scores, starts, lengths,
+                                        limits, bias_flat, ids_flat,
+                                        emb_flat, chunk, target, l, exact)
+
+
 def index_sort_ref(cluster: torch.Tensor, bias: torch.Tensor
                    ) -> torch.Tensor:
     """Appendix-B index order: stable (cluster asc, bias desc) argsort.

@@ -307,3 +307,250 @@ def test_train_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
     same = (sg.store.cluster.cpu() == sc.store.cluster).float().mean()
     assert float(same) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# fused serve path and logical-shard serving
+# ---------------------------------------------------------------------------
+
+def _slab_case(g, b, c, l, d, tail=3, integer=False, nan_tail=False):
+    """Flat index laid out as C slabs of L items (cluster c at c*L) plus a
+    tail; with ``nan_tail`` every lane past a cluster's length holds NaN
+    (lengths shared by all queries), and the clean bias is returned too."""
+    n = c * l + tail
+    if integer:
+        cs = g.integers(-2, 3, size=(b, c)).astype(np.float32)
+        slab = -np.sort(-g.integers(-2, 3, size=(c, l)), axis=1)
+        emb = g.integers(-2, 3, size=(n, d)).astype(np.float32)
+        u = g.integers(-2, 3, size=(b, d)).astype(np.float32)
+    else:
+        cs = g.normal(size=(b, c)).astype(np.float32)
+        slab = -np.sort(-g.normal(size=(c, l)), axis=1)
+        emb = g.normal(size=(n, d)).astype(np.float32)
+        u = g.normal(size=(b, d)).astype(np.float32)
+    slab = slab.astype(np.float32)
+    starts = np.broadcast_to(np.arange(c, dtype=np.int32) * l, (b, c))
+    lengths = np.broadcast_to(g.integers(0, l + 1, size=c).astype(np.int32),
+                              (b, c))
+    bias = np.concatenate([slab.reshape(-1),
+                           g.normal(size=tail).astype(np.float32)])
+    clean = bias.copy()
+    if nan_tail:
+        for ci in range(c):
+            bias[ci * l + lengths[0, ci]:(ci + 1) * l] = np.nan
+    limits = np.full((b, c), n - 1, np.int32)
+    ids = g.permutation(n).astype(np.int32)
+    arrays = (u, cs, starts.copy(), lengths.copy(), limits, bias, ids, emb)
+    return arrays, clean
+
+
+def _sharded_case(g, b, c, l, d, shards, cap):
+    """Flat (shards * cap) layout whose lanes clamp at their shard's last
+    slot; many lists run past the end of their shard."""
+    n = shards * cap
+    owner = g.integers(0, shards, size=(b, c))
+    local = g.integers(cap // 2, cap + 1, size=(b, c))
+    starts = (owner * cap + local).astype(np.int32)
+    limits = (owner * cap + cap - 1).astype(np.int32)
+    lengths = g.integers(0, l + 1, size=(b, c)).astype(np.int32)
+    cs = g.normal(size=(b, c)).astype(np.float32)
+    bias = g.normal(size=n).astype(np.float32)
+    ids = g.permutation(n).astype(np.int32)
+    emb = g.normal(size=(n, d)).astype(np.float32)
+    u = g.normal(size=(b, d)).astype(np.float32)
+    return u, cs, starts, lengths, limits, bias, ids, emb
+
+
+def _serve_case(g, b, k, c, l, d, n):
+    """A flat index of K clusters over N items (each cluster's biases
+    sorted descending), and C clusters drawn per query."""
+    offs = np.concatenate([[0], np.sort(g.integers(0, n + 1, k - 1)), [n]])
+    seg = np.repeat(np.arange(k), np.diff(offs))
+    bias = g.normal(size=n).astype(np.float32)
+    bias = bias[np.lexsort((-bias, seg))]
+    cl = g.integers(0, k, size=(b, c))
+    starts = offs[cl].astype(np.int32)
+    lengths = np.minimum(np.diff(offs)[cl], l).astype(np.int32)
+    limits = np.full((b, c), n - 1, np.int32)
+    cs = -np.sort(-g.normal(size=(b, c)).astype(np.float32), axis=1)
+    ids = g.permutation(n).astype(np.int32)
+    emb = (g.normal(size=(n, d)) * 0.1).astype(np.float32)
+    u = g.normal(size=(b, d)).astype(np.float32)
+    return u, cs, starts, lengths, limits, bias, ids, emb
+
+
+def _check_fused(cuda, arrays, chunk, target, l, bitwise_rank=False,
+                 want_arrays=None):
+    """Kernel on ``arrays`` vs plain on ``want_arrays`` (default the
+    same): pos, merge_scores, cand_ids bitwise, exact_scores close."""
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in arrays]
+    wargs = args if want_arrays is None else [
+        torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+        for x in want_arrays]
+    before = ops.LAUNCHES["fused_gather_rank"]
+    got = ops.fused_gather_rank(*args, chunk, target, l)
+    want = ref.fused_gather_rank_ref(*wargs, chunk, target, l)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_gather_rank"] == before + 1
+    for name, a, w in zip(("pos", "merge_scores", "cand_ids", "exact"),
+                          got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        if name == "exact" and not bitwise_rank:
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+        elif a.dtype == torch.float32:
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32)), name
+        else:
+            assert torch.equal(a, w), name
+    return got
+
+
+@pytest.mark.parametrize("b,c,l,d,chunk,target", [
+    (2, 6, 10, 8, 4, 25), (3, 13, 17, 12, 3, 70), (1, 5, 3, 4, 8, 9),
+    (16, 128, 40, 64, 8, 512), (4, 300, 7, 5, 2, 100)])
+def test_fused_gather_rank_kernel_matches_plain(cuda, b, c, l, d, chunk,
+                                                target):
+    g = np.random.default_rng(b * c + l)
+    arrays, _ = _slab_case(g, b, c, l, d)
+    _check_fused(cuda, arrays, chunk, target, l)
+    ints, _ = _slab_case(g, b, c, l, d, integer=True)
+    _check_fused(cuda, ints, chunk, target, l, bitwise_rank=True)
+
+
+def test_fused_gather_rank_kernel_at_serve_shape(cuda):
+    """B=512, C=128, L=256, chunk 8, S=512, d=64 over 2**21 items."""
+    g = np.random.default_rng(0)
+    arrays = _serve_case(g, 512, 16384, 128, 256, 64, 1 << 21)
+    pos = _check_fused(cuda, arrays, 8, 512, 256)[0]
+    assert bool((pos >= 0).all())
+
+
+@pytest.mark.parametrize("shards,cap", [(4, 64), (3, 17)])
+def test_fused_gather_rank_kernel_sharded_limits(cuda, shards, cap):
+    """Per-lane clamps at each shard's last slot, with lists that run past
+    the end of their shard."""
+    g = np.random.default_rng(shards * cap)
+    arrays = _sharded_case(g, 8, 24, 40, 16, shards, cap)
+    _check_fused(cuda, arrays, 4, 150, 40)
+
+
+def test_fused_gather_rank_kernel_nan_dead_tail(cuda):
+    """NaN in every lane past a cluster's length changes nothing."""
+    g = np.random.default_rng(3)
+    arrays, clean = _slab_case(g, 4, 9, 12, 8, nan_tail=True)
+    want = list(arrays)
+    want[5] = clean
+    _check_fused(cuda, arrays, 4, 40, 12, want_arrays=want)
+
+
+def test_fused_gather_rank_kernel_n_below_chunk(cuda):
+    """N < chunk: the kernel needs no padding."""
+    g = np.random.default_rng(4)
+    b, c, d, n = 3, 2, 4, 3
+    arrays = (g.normal(size=(b, d)).astype(np.float32),
+              g.normal(size=(b, c)).astype(np.float32),
+              np.zeros((b, c), np.int32), np.full((b, c), n, np.int32),
+              np.full((b, c), n - 1, np.int32),
+              -np.sort(-g.normal(size=n)).astype(np.float32),
+              np.arange(n, dtype=np.int32),
+              g.normal(size=(n, d)).astype(np.float32))
+    _check_fused(cuda, arrays, 8, 10, 5)
+
+
+@pytest.mark.parametrize("c,l,chunk,target", [(128, 256, 8, 512),
+                                              (13, 17, 4, 40), (6, 3, 8, 9),
+                                              (7, 32, 16, 100)])
+def test_merge_serve_ds_kernel_bitwise(cuda, c, l, chunk, target):
+    """The ds launch: bitwise its plain version and the merge_serve
+    kernel, also for L < chunk."""
+    g = np.random.default_rng(c + l)
+    for tied in (False, True):
+        args = [torch.from_numpy(x).to(cuda)
+                for x in _merge_case(g, 16, c, l, tied)]
+        before = dict(ops.LAUNCHES)
+        pos, sc = ops.merge_serve_ds(*args, chunk, target)
+        kp, ks = ops.merge_serve(*args, chunk, target)
+        rp, rs = ref.merge_serve_ds_ref(*args, chunk, target)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["merge_serve_ds"] == before["merge_serve_ds"] + 1
+        for p, s in ((rp, rs), (kp, ks)):
+            assert torch.equal(pos, p)
+            assert torch.equal(sc.view(torch.int32), s.view(torch.int32))
+
+
+def test_fused_kernels_do_not_fall_back_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel or the wrapper raises: with the
+    kernel library unloadable, no plain result comes back."""
+    from repro_torch.kernels import build
+
+    def fail(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", fail)
+    g = np.random.default_rng(5)
+    arrays, _ = _slab_case(g, 2, 4, 6, 8)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in arrays]
+    with pytest.raises(RuntimeError, match="cannot load"):
+        ops.fused_gather_rank(*args, 2, 8, 6)
+    ms = [torch.from_numpy(x).to(cuda) for x in _merge_case(g, 2, 4, 6,
+                                                            False)]
+    with pytest.raises(RuntimeError, match="cannot load"):
+        ops.merge_serve_ds(*ms, 2, 8)
+    with pytest.raises(TypeError):
+        ops.fused_gather_rank(args[0], args[1], args[2].long(), *args[3:],
+                              2, 8, 6)
+
+
+def _smoke_service_inputs():
+    from repro_torch.configs.svq import smoke
+    from repro_torch.core import assignment_store as astore
+    from repro_torch.core import retriever
+    cfg = smoke()
+    gen = torch.Generator().manual_seed(0)
+    params, state = retriever.init(gen, cfg, device="cpu")
+    ids = torch.arange(cfg.n_items)
+    cate = torch.randint(0, 4096, (cfg.n_items,), generator=gen)
+    _, v_emb, v_bias = retriever.index_forward(
+        params, cfg, torch.zeros(1, 2 * cfg.item_embed_dim),
+        retriever.item_features(params, ids, cate))
+    clusters = torch.randint(0, cfg.n_clusters, (cfg.n_items,),
+                             generator=gen)
+    state = state._replace(store=astore.write(state.store, ids, clusters,
+                                              v_emb, v_bias))
+    g = np.random.default_rng(0)
+    batch = dict(user_id=g.integers(0, cfg.n_users, 32).astype(np.int32),
+                 hist=g.integers(0, cfg.n_items, (32, cfg.user_hist_len))
+                 .astype(np.int32))
+    return cfg, params, state, batch
+
+
+@pytest.mark.parametrize("fused,n_shards", [(True, None), (False, 4),
+                                            (True, 4), (True, 8)])
+def test_fused_and_sharded_service_on_card_match_single_device(
+        cuda, fused, n_shards):
+    """On the card the fused and the sharded services give the
+    single-device unfused service's candidates and scores bit for bit
+    (the cluster_rank kernel scores each cluster alone, so a shard's
+    slice of the codebook scores the same), exact_scores up to summation
+    order; and each kernel of the path runs once per batch (cluster_rank
+    once per shard)."""
+    from repro_torch.serving.service import RetrievalService
+    cfg, params, state, batch = _smoke_service_inputs()
+    want = RetrievalService(cfg, params, state, device=cuda).serve_batch(
+        batch)
+    svc = RetrievalService(cfg, params, state, fused=fused,
+                           n_shards=n_shards, device=cuda)
+    ops.reset_launches()
+    got = svc.serve_batch(batch)
+    assert ops.LAUNCHES["cluster_rank"] == (n_shards or 1)
+    assert ops.LAUNCHES["fused_gather_rank"] == int(fused)
+    assert ops.LAUNCHES["merge_serve"] == int(not fused)
+    assert set(got) == set(want)
+    for k in want:
+        if k == "exact_scores":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert want["valid"].any()

@@ -199,8 +199,9 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch(rng):
     cs, bl, ln = _random_case(rng, 4, 6, b=2)
     t_ops.merge_serve(_t(cs), _t(bl), _t(ln), 2, 8)
     assert t_ops.LAUNCHES == {name: 0 for name in (
-        "cluster_rank", "merge_serve", "vq_assign", "inbatch_softmax",
-        "inbatch_softmax_bwd", "ema_segment_sum")}
+        "cluster_rank", "merge_serve", "merge_serve_ds", "fused_gather_rank",
+        "vq_assign", "inbatch_softmax", "inbatch_softmax_bwd",
+        "ema_segment_sum")}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

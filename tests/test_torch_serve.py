@@ -248,15 +248,16 @@ def test_port_alone_serves_at_smoke_config():
     assert ((out["item_ids"] >= 0) & (out["item_ids"] < cfg.n_items)).all()
     assert (np.diff(out["scores"], axis=1) <= 0).all()
     assert t_ops.LAUNCHES == {name: 0 for name in (
-        "cluster_rank", "merge_serve", "vq_assign", "inbatch_softmax",
-        "inbatch_softmax_bwd", "ema_segment_sum")}
+        "cluster_rank", "merge_serve", "merge_serve_ds", "fused_gather_rank",
+        "vq_assign", "inbatch_softmax", "inbatch_softmax_bwd",
+        "ema_segment_sum")}
 
 
 def test_unported_options_raise(trained):
     t = trained
-    with pytest.raises(NotImplementedError, match="A5"):
-        RetrievalService(t["tcfg"], t["tparams"], t["tstate"], fused=True,
-                         device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        RetrievalService(t["tcfg"], t["tparams"], t["tstate"],
+                         rank_parallel=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         t_retriever.init(torch.Generator().manual_seed(0),
                          t["tcfg"].with_(ranking="complicated"),
