@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve and train paths on one CUDA card.
+"""Drive the PyTorch port's serve, train and quality paths on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the six hand-written kernel sources from
+Builds the seven hand-written kernel sources from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at once) and
 holds each kernel to its plain PyTorch version at the shapes of the full
 ``SVQConfig()`` (K=16384 clusters, d=64; serve: C=128, L=256, chunk=8,
 S=512, batches of 512 users over 2,097,152 items; train: batches of
-65536).  Then it serves full-width batches through ``RetrievalService``
-unfused, fused (``fused_gather_rank``) and on 4 logical shards (unfused
-and fused), each held to the unfused single-device service's outputs;
-trains 3 full-width steps with ``train_svq`` through the train kernels,
-serves a batch from the trained state, and runs a small model on the
-card and on the CPU, for serving (unfused, fused, sharded) and for 3
-train steps, to compare them.  The launch counters, set to 0 before each
-path and read after it, show that each path went through its kernels.
-Prints one line per phase, then a JSON line of per-kernel numbers, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
-Exits nonzero, without that last line, if there is no card or any phase
-fails.
+65536; the exact MIPS oracle ``topk_dot``: one query against 1,000,000
+candidates and 512 queries against the 2,097,152-slot store).  Then it
+serves full-width batches through ``RetrievalService`` unfused, fused
+(``fused_gather_rank``) and on 4 logical shards (unfused and fused),
+each held to the unfused single-device service's outputs; serves them
+again with the shadow recall probes on (``enable_probes``: every batch
+re-scored by the exact oracle, which launches ``topk_dot``); trains 3
+full-width steps with ``train_svq`` through the train kernels, serves a
+batch from the trained state and reads its recall (``eval_svq_recall``,
+the brute-force ceiling, the store's collision rate); and runs a small
+model on the card and on the CPU, for serving (unfused, fused, sharded),
+the quality path and 3 train steps, to compare them.  The launch
+counters, set to 0 before each path and read after it, show that each
+path went through its kernels.  Prints one line per phase, then a JSON
+line of per-kernel numbers, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Exits nonzero, without that last
+line, if there is no card or any phase fails.
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ TRAIN_STEPS = 3
 TRAIN_BATCH = 65536  # impressions (and candidates) per step: train_batch
 SOFTMAX_CHECK_B = (TRAIN_BATCH, 16384, 1000)   # kernel vs plain
 N_SHARDS = 4         # logical shards of the sharded serve path
+RETRIEVAL_CAND = 1_000_000   # candidates of the retrieval_cand shape
+PROBE_K = 20         # the probe oracle's k
 SERVE_KERNELS = ("cluster_rank", "merge_serve")
 # launches of each train kernel in one train step (n_tasks = 1)
 TRAIN_KERNELS = {"vq_assign": 2, "inbatch_softmax": 2,
@@ -592,6 +599,147 @@ def sharded_path(RetrievalService, cfg, dev, main) -> dict:
     return all_launches
 
 
+def probe_path(RetrievalService, cfg, dev, main) -> dict:
+    """Shadow probes on the live full-width service, unfused and fused:
+    every batch of the main path probed (k=20) against the exact oracle
+    over the 2,097,152-slot store, one topk_dot launch a probed batch, no
+    probe dropped or failed; one probe's oracle held to the plain version
+    on the card."""
+    from repro_torch.baselines import brute_force
+    from repro_torch.core.merge_sort import NEG
+    from repro_torch.kernels import ops, ref
+    launches = {}
+    for fused in (False, True):
+        svc = RetrievalService(cfg, main["params"], main["state"],
+                               fused=fused, device=dev)
+        svc.serve_batch(main["batches"][0])          # warm-up, unprobed
+        prober = svc.enable_probes(k=PROBE_K, sample_every=1,
+                                   max_queue=N_BATCHES)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for batch in main["batches"]:
+            svc.serve_batch(batch)
+        serve_ms = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+        if not prober.drain(timeout=300):
+            raise AssertionError("probes did not drain in 300 s")
+        drained_ms = (time.perf_counter() - t0) * 1e3
+        runs = dict(ops.LAUNCHES)
+        snap = prober.snapshot()
+        if snap["n_errors"] or snap["n_dropped"]:
+            raise AssertionError(f"probes failed: {snap['n_errors']} errors, "
+                                 f"{snap['n_dropped']} dropped")
+        if snap["n_scored"] != N_BATCHES:
+            raise AssertionError(f"{snap['n_scored']} probes scored for "
+                                 f"{N_BATCHES} probed batches")
+        merge = "fused_gather_rank" if fused else "merge_serve"
+        check_launches(runs, {"cluster_rank": N_BATCHES, merge: N_BATCHES,
+                              "topk_dot": N_BATCHES},
+                       f"{N_BATCHES} probed serve batches (fused={fused})")
+        phase("probe_path", fused=fused, batches=N_BATCHES, batch=BATCH,
+              k=PROBE_K, recall=snap["recall"], score_gap=snap["score_gap"],
+              n_scored=snap["n_scored"], rows_scored=snap["n_rows_scored"],
+              probe_lag=snap["probe_lag"],
+              cluster_contribution=snap["cluster_contribution"],
+              serve_ms_per_batch_with_probes=serve_ms,
+              serve_and_drain_ms=drained_ms, launches=runs)
+        launches[fused] = runs
+        if not fused:
+            # one probe's oracle against the plain version on the card
+            batch = main["batches"][0]
+            store = main["state"].store
+            u = torch.as_tensor(svc.user_embedding(batch), device=dev)
+            bias = torch.where(store.cluster >= 0, store.item_bias, NEG)
+            kv, ks = brute_force.mips_topk(u, store.item_emb, bias, PROBE_K)
+            ans = svc._probe_oracle(prober_job(batch, main["outs"][0]))
+            if not np.array_equal(ans.exact_ids,
+                                  store.item_id[ks.long()].cpu().numpy()):
+                raise AssertionError("the probe oracle's ids are not its "
+                                     "mips_topk's")
+            err, n_diff = topk_vs_plain(ops, ref, u, store.item_emb, bias,
+                                        PROBE_K, False)
+            phase("probe_oracle_vs_plain", max_abs_err=err,
+                  ids_in_near_ties=n_diff)
+        svc.disable_probes()
+        del svc
+    return launches
+
+
+def prober_job(batch, out):
+    """The ProbeJob ``serve_batch`` submits for ``out``."""
+    from repro_torch.core.merge_sort import NEG
+    from repro_torch.obs.quality import ProbeJob
+    exact = out["exact_scores"]
+    return ProbeJob(batch=batch, served_ids=out["index_ids"],
+                    served_valid=exact > NEG / 2, served_exact=exact,
+                    task=0, generation=0, t_serve=time.monotonic())
+
+
+def quality_path(cfg, dev, params, index, stream) -> None:
+    """Recall of the full-width trained state: eval_svq_recall (64 users,
+    k=50), the brute-force ceiling (mips_topk over the item tower's output
+    for all items, against the same users' true top-50), the store's
+    collision rate over all item ids, and read_cluster of served ids."""
+    from repro_torch.baselines import brute_force
+    from repro_torch.core import assignment_store as astore
+    from repro_torch.core import retriever
+    from repro_torch.launch.train import eval_svq_recall
+    from repro_torch.models.dense import mlp
+    from repro_torch.kernels import ops
+    n_users, k = 64, 50
+    t0 = time.perf_counter()
+    rep = eval_svq_recall(cfg, params, index, stream, n_users=n_users, k=k,
+                          device=dev)
+    eval_s = time.perf_counter() - t0
+    users = np.arange(n_users) % stream.cfg.n_users
+    truth = stream.true_topk(users, k)
+    with torch.no_grad():
+        v_all = []
+        for lo in range(0, cfg.n_items, 1 << 18):
+            ids = torch.arange(lo, min(cfg.n_items, lo + (1 << 18)),
+                               device=dev, dtype=torch.int32)
+            cate = torch.as_tensor(stream.item_cate[lo:lo + (1 << 18)],
+                                   device=dev)
+            v_all.append(mlp(params["item_tower"],
+                             retriever.item_features(params, ids, cate)))
+        v_all = torch.cat(v_all)
+        batch = {"user_id": torch.as_tensor(users, device=dev,
+                                            dtype=torch.int32),
+                 "hist": torch.as_tensor(stream.user_hist[users], device=dev,
+                                         dtype=torch.int32)}
+        feat, _ = retriever.user_features(params, batch["user_id"],
+                                          batch["hist"])
+        u = retriever.user_tower(params, feat, 0)
+        ops.reset_launches()
+        _, bf_ids = brute_force.mips_topk(u, v_all[:, :-1].contiguous(),
+                                          v_all[:, -1].contiguous(), k)
+        if ops.LAUNCHES["topk_dot"] != 1:
+            raise AssertionError("the brute-force ceiling did not launch "
+                                 "topk_dot once")
+        ceiling = brute_force.recall_at_k(bf_ids.cpu().numpy(), truth)
+        collide = float(astore.collision_rate(
+            index.store, torch.arange(cfg.n_items, device=dev)))
+        # read_cluster of what the trained state serves to serve_trained's
+        # batch of 512 (the 3-step state serves few valid candidates)
+        idx = astore.build_serving_index(index.store, cfg.n_clusters)
+        out = retriever.serve(
+            params, index, cfg, idx,
+            request_batch(cfg, np.random.default_rng(SEED + 1), BATCH),
+            device=dev)
+        served = out["item_ids"][out["valid"]]
+        clusters = astore.read_cluster(index.store, served)
+    if not (np.isfinite(rep["recall"]) and 0.0 <= rep["recall"] <= 1.0
+            and 0.0 <= ceiling <= 1.0):
+        raise AssertionError(f"recall out of range: {rep}, {ceiling}")
+    if served.numel() == 0 or not bool((clusters >= 0).all()):
+        raise AssertionError("read_cluster found a served id outside the "
+                             "store")
+    phase("quality_path", users=n_users, k=k, recall=rep["recall"],
+          served_valid=rep["served_valid"], bruteforce_ceiling=ceiling,
+          random_recall=k / cfg.n_items, collision_rate=collide,
+          served_ids_read=int(served.numel()),
+          read_cluster_min=int(clusters.min()), eval_s=eval_s)
+
+
 def range_device_ms(prof, name) -> float:
     """Busy device time of the ``record_function`` range ``name``: the
     kernels and copies that run inside the range's span on the device
@@ -676,8 +824,36 @@ def small_reference(retriever, astore, RetrievalService, smoke, dev) -> None:
             if not np.allclose(ref[k], got[k], rtol=1e-5, atol=1e-5):
                 raise AssertionError(f"small model, {name}: {k} not close to "
                                      f"the CPU run")
+    # the quality path: eval_svq_recall and one probe's oracle answer
+    from repro_torch.data.streaming import RecsysStream, StreamConfig
+    from repro_torch.launch.train import eval_svq_recall
+    from repro_torch.utils.tree import to_device
+    recalls, answers = {}, {}
+    job = prober_job(batch, ref)
+    for device in ("cpu", dev):
+        stream = RecsysStream(StreamConfig(n_items=cfg.n_items,
+                                           n_users=cfg.n_users,
+                                           hist_len=cfg.user_hist_len,
+                                           seed=SEED))
+        recalls[str(device)] = eval_svq_recall(
+            cfg, to_device(params, device), to_device(state, device), stream,
+            n_users=32, k=20, device=device)
+        svc = RetrievalService(cfg, params, state, device=device)
+        svc.enable_probes(k=PROBE_K, sample_every=1000)
+        answers[str(device)] = svc._probe_oracle(job)
+        svc.disable_probes()
+    if recalls["cpu"] != recalls[str(dev)]:
+        raise AssertionError(f"small model: eval_svq_recall {recalls}")
+    a, b = answers["cpu"], answers[str(dev)]
+    if not (np.array_equal(a.exact_ids, b.exact_ids)
+            and np.array_equal(a.cluster_of, b.cluster_of)
+            and np.allclose(a.exact_scores, b.exact_scores, rtol=1e-5,
+                            atol=1e-5)):
+        raise AssertionError("small model: the probe oracle's answer on the "
+                             "card differs from the CPU's")
     phase("small_reference", variants=",".join(variants), ids_equal=True,
-          scores_close="rtol=atol=1e-5")
+          scores_close="rtol=atol=1e-5", eval_svq_recall=recalls["cpu"],
+          probe_oracle_ids_equal=True)
 
 
 def near_tie_ok(scores_of, got, want, rel=1e-5):
@@ -911,6 +1087,152 @@ def check_ema_segment_sum(ops, ref, cfg, dev, gen) -> dict:
                 bound_ms=t_bound, bound_by=by, library_ms=lib_ms)
 
 
+def topk_case(gen, dev, b, n, d, integer=False, dup=0, live=None,
+              dtype=torch.float32):
+    """u (B, d), items (N, d), bias (N,): normal, or integer-valued with
+    ``dup`` copies of item 0 at random slots (ties across blocks); with
+    ``live`` only that many slots live, the rest zero rows at bias NEG
+    (the oracle's empty slots)."""
+    if integer:
+        u = torch.randint(-2, 3, (b, d), generator=gen, device=dev).float()
+        items = torch.randint(-1, 2, (n, d), generator=gen,
+                              device=dev).float()
+        bias = torch.randint(-2, 3, (n,), generator=gen, device=dev).float()
+    else:
+        u = torch.randn((b, d), generator=gen, device=dev)
+        items = torch.randn((n, d), generator=gen, device=dev) * 0.1
+        bias = torch.randn((n,), generator=gen, device=dev)
+    if dup:
+        at = torch.randperm(n, generator=gen, device=dev)[:dup]
+        items[at], bias[at] = items[0].clone(), bias[0].clone()
+    if live is not None:
+        dead = torch.randperm(n, generator=gen, device=dev)[live:]
+        items[dead], bias[dead] = 0.0, -1e30
+    return u.to(dtype), items.to(dtype), bias.to(dtype)
+
+
+def topk_vs_plain(ops, ref, u, items, bias, k, bitwise, block_n=None):
+    """The kernel against its plain version on the same inputs: bitwise,
+    or values within rtol 1e-5 / atol 1e-5 and ids differing only in
+    near-ties of the plain scores.  -> (max |value err|, rows whose ids
+    differ)."""
+    vals, idx = ops.topk_dot(u, items, bias, k, block_n=block_n)
+    rv, ri = ref.topk_dot_ref(u, items, bias, k)
+    torch.cuda.synchronize()
+    if bitwise:
+        if not (torch.equal(idx, ri) and
+                torch.equal(vals.view(torch.int32), rv.view(torch.int32))):
+            raise AssertionError(f"topk_dot not bitwise its plain version "
+                                 f"(B={u.shape[0]}, N={items.shape[0]}, "
+                                 f"k={k})")
+        return 0.0, 0
+    if not torch.allclose(vals, rv, rtol=1e-5, atol=1e-5):
+        raise AssertionError("topk_dot values differ from the plain version "
+                             "beyond rtol 1e-5, atol 1e-5")
+    u32, it32, b32 = u.float(), items.float(), bias.float()
+
+    def scores_of(rows, ids):
+        ids = ids.long()
+        return (it32[ids] * u32[rows][:, None, :]).sum(-1) + b32[ids]
+
+    ok, n_diff, _ = near_tie_ok(scores_of, idx, ri)
+    if not ok:
+        raise AssertionError("topk_dot ids differ from the plain version "
+                             "outside near-ties")
+    return float((vals - rv).abs().max()), n_diff
+
+
+def topk_device_ms(fn, calls: int = 3) -> tuple:
+    """Device time per call of ``fn`` under torch.profiler: the topk_dot
+    kernel's, and that of every kernel the call launches (stage 2's sort
+    and gathers too).  A call's event-timed ms also holds its host time
+    where the host is the slower side."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    total = sum(dev_us(e, True) for e in kernels) / 1e3 / calls
+    own = sum(dev_us(e, True) for e in kernels
+              if "topk_dot_kernel" in e.key) / 1e3 / calls
+    return own, total
+
+
+def check_topk_dot(ops, ref, cfg, dev, gen) -> dict:
+    """Kernel vs plain at retrieval_cand (B=1, N=1,000,000, k=512 and 50)
+    and at the probe oracle's shape (B=512, N=2,097,152, k=20); bitwise on
+    integer inputs with planted ties, with N odd, with more than N - k
+    slots masked to NEG, across block sizes; bf16 inputs.  Times at both
+    shapes; the JSON row carries the probe shape, which the probe path
+    runs."""
+    d = cfg.embed_dim
+    shapes = {"retrieval_cand": (1, RETRIEVAL_CAND, 512),
+              "retrieval_cand_k50": (1, RETRIEVAL_CAND, 50),
+              "probe": (BATCH, cfg.n_items, PROBE_K)}
+    errs, diffs, inputs = {}, {}, {}
+    for name, (b, n, k) in shapes.items():
+        args = topk_case(gen, dev, b, n, d)
+        errs[name], diffs[name] = topk_vs_plain(ops, ref, *args, k, False)
+        inputs[name] = args
+    topk_vs_plain(ops, ref, *topk_case(gen, dev, 1, RETRIEVAL_CAND - 1, d,
+                                       integer=True, dup=4000), 512, True)
+    topk_vs_plain(ops, ref, *topk_case(gen, dev, BATCH, cfg.n_items, d,
+                                       integer=True, dup=4000), PROBE_K,
+                  True)
+    masked = topk_case(gen, dev, 64, 100_003, d, integer=True, live=300)
+    for block_n in (128, 4096, None):
+        topk_vs_plain(ops, ref, *masked, 512, True, block_n=block_n)
+    bf16 = topk_case(gen, dev, 1, RETRIEVAL_CAND, d, dtype=torch.bfloat16)
+    errs["bf16"], diffs["bf16"] = topk_vs_plain(ops, ref, *bf16, 512, False)
+    del masked, bf16
+    phase("topk_dot", max_abs_err=errs, ids_in_near_ties=diffs,
+          tied_bitwise_at=("retrieval_cand N-1", "probe"),
+          masked_bitwise_block_n=(128, 4096, "auto"), bf16_checked=True)
+    times = {}
+    for name, (b, n, k) in shapes.items():
+        u, items, bias = inputs[name]
+        one = u.shape[0] == 1
+        ms = time_ms(lambda: ops.topk_dot(u, items, bias, k, block_n=None),
+                     iters=20)
+        plain_ms = time_ms(lambda: ref.topk_dot_ref(u, items, bias, k),
+                           iters=3, warmup=1)
+        if one:
+            lib_ms = time_ms(lambda: torch.topk(items @ u[0] + bias, k),
+                             iters=20)
+        else:
+            lib_ms = time_ms(lambda: torch.topk(u @ items.T + bias, k),
+                             iters=5, warmup=1)
+        t_bound, by = bound_ms(4 * (b * d + n * d + n) + 8 * b * k,
+                               2 * b * n * d)
+        kernel_dev, call_dev = topk_device_ms(
+            lambda: ops.topk_dot(u, items, bias, k, block_n=None))
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=t_bound, bound_by=by,
+                           kernel_device_ms=kernel_dev,
+                           call_device_ms=call_dev)
+        torch.cuda.empty_cache()
+    phase("topk_dot_time", **{f"{name}": {key: (round(v, 5)
+                                                if isinstance(v, float)
+                                                else v)
+                                          for key, v in t.items()}
+                              for name, t in times.items()})
+    del inputs
+    torch.cuda.empty_cache()
+    t = times["probe"]
+    return dict(name="topk_dot", route="cuda",
+                source="src/repro_torch/kernels/csrc/topk_dot.cu",
+                replaces="src/repro/kernels/topk_dot.py:21",
+                max_abs_err=errs["probe"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                retrieval_cand=times["retrieval_cand"])
+
+
 class TimedStream:
     """A RecsysStream whose batch calls are timed (host data time)."""
 
@@ -990,7 +1312,7 @@ def train_path(ops, cfg, dev):
           max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
           launches=launches)
     profile_train_step(cfg, res.state, stream, dev)
-    return launches, params, index
+    return launches, params, index, stream.stream
 
 
 def profile_train_step(cfg, state, stream, dev) -> None:
@@ -1139,19 +1461,22 @@ def main() -> int:
                check_fused_gather_rank(ops, ref, cfg, dev, gen, 256),
                check_vq_assign(ops, ref, cfg, dev, gen),
                *check_inbatch_softmax(ops, ref, cfg, dev, gen),
-               check_ema_segment_sum(ops, ref, cfg, dev, gen)]
+               check_ema_segment_sum(ops, ref, cfg, dev, gen),
+               check_topk_dot(ops, ref, cfg, dev, gen)]
     torch.cuda.empty_cache()
 
     main = main_path(retriever, astore, RetrievalService, cfg, dev)
     serve_launches = main["launches"]
     fused_launches = fused_path(RetrievalService, cfg, dev, main)
     sharded_path(RetrievalService, cfg, dev, main)
+    probe_launches = probe_path(RetrievalService, cfg, dev, main)[False]
     svc = main["svc"]
     del main
     torch.cuda.empty_cache()
-    train_launches, params, index = train_path(ops, cfg, dev)
+    train_launches, params, index, stream = train_path(ops, cfg, dev)
     serve_trained(svc, params, index, cfg)
-    del svc, params, index
+    quality_path(cfg, dev, params, index, stream)
+    del svc, params, index, stream
     torch.cuda.empty_cache()
     small_reference(retriever, astore, RetrievalService, smoke, dev)
     small_train_reference(smoke, dev)
@@ -1163,7 +1488,9 @@ def main() -> int:
                "fused_gather_rank": ("fused serve batch", fused_launches,
                                      N_BATCHES),
                "merge_serve_ds": ("none: no path of the port or of the "
-                                  "reference runs it", None, 1)}
+                                  "reference runs it", None, 1),
+               "topk_dot": ("probed serve batch", probe_launches,
+                            N_BATCHES)}
     for k in kernels:
         per, launches, units = path_of.get(
             k["name"], ("train step", train_launches, TRAIN_STEPS))

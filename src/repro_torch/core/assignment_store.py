@@ -71,6 +71,20 @@ def write(store: AssignmentStore, ids: torch.Tensor, cluster: torch.Tensor,
     return out
 
 
+def read_cluster(store: AssignmentStore, ids: torch.Tensor) -> torch.Tensor:
+    """The cluster held in each id's slot (-1 where the slot is empty; a
+    colliding id reads its slot's holder, as in the reference)."""
+    return store.cluster[hash_ids(ids, store.capacity)]
+
+
+def collision_rate(store: AssignmentStore, ids: torch.Tensor
+                   ) -> torch.Tensor:
+    """Fraction of ids whose slot currently holds a DIFFERENT id."""
+    held = store.item_id[hash_ids(ids, store.capacity)]
+    return ((held >= 0) & (held != ids.to(torch.int32))).to(
+        torch.float32).mean()
+
+
 class ServingIndex(NamedTuple):
     """Appendix-B layout: compact item list segmented by cluster.
 

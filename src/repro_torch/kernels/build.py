@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("cluster_rank", "merge_serve", "fused_gather_rank", "vq_assign",
-           "inbatch_softmax", "ema_segment_sum")
+           "inbatch_softmax", "ema_segment_sum", "topk_dot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -64,6 +64,10 @@ _SIGNATURES = {
                                     _P], _I),
         "ema_segment_sum_slices": ([], _I),
         "ema_segment_sum_smem_bytes": ([_I], ctypes.c_size_t),
+    },
+    "topk_dot": {
+        "topk_dot_launch": ([_P] * 5 + [_I, _L, _I, _I, _L, _I, _I, _P], _I),
+        "topk_dot_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
     },
 }
 

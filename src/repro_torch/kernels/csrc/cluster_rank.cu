@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_select.cuh"
+
 namespace {
 
 // ---- score_kernel: scores[b, k] = sum_j u[b, j] * e[k, j] ----------------
@@ -97,13 +99,6 @@ score_kernel(const float* __restrict__ u, const float* __restrict__ e,
 constexpr int kSelThreads = 512;
 constexpr int kSelWarps = kSelThreads / 32;
 
-// Monotone map float -> uint32 (larger float, larger key); -0.0 -> +0.0.
-__device__ __forceinline__ uint32_t order_key(float f) {
-  if (f == 0.f) f = 0.f;
-  const uint32_t b = __float_as_uint(f);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
 // Exclusive prefix sum over the block, in thread order.
 __device__ int block_exclusive_scan(int v, int* warp_sums) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -142,7 +137,8 @@ select_kernel(const float* __restrict__ scores, float* __restrict__ out_val,
 
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const float* row = scores + static_cast<size_t>(b) * K;
-  for (int k = tid; k < K; k += kSelThreads) keys[k] = order_key(row[k]);
+  for (int k = tid; k < K; k += kSelThreads)
+    keys[k] = radix::order_key(row[k]);
 
   // Radix select: after the pass over bits [shift, shift+8), `prefix`
   // holds the top bits of the n-th largest key and `remaining` how many
@@ -163,32 +159,13 @@ select_kernel(const float* __restrict__ scores, float* __restrict__ out_val,
     }
     __syncthreads();
     if (tid < 32) {
-      // lane l owns digits 255-8l down to 248-8l
-      unsigned int c[8];
-      unsigned int local = 0;
-      for (int q = 0; q < 8; ++q) {
-        c[q] = hist[255 - 8 * tid - q];
-        local += c[q];
-      }
-      unsigned int incl = local;
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned int t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += t;
-      }
-      const unsigned int need = static_cast<unsigned int>(remaining);
-      const unsigned int hit = __ballot_sync(0xffffffffu, incl >= need);
-      if (tid == __ffs(hit) - 1) {
-        unsigned int acc = incl - local;
-        int digit = 255 - 8 * tid;
-        for (int q = 0; q < 8; ++q) {
-          if (acc + c[q] >= need) {
-            digit = 255 - 8 * tid - q;
-            break;
-          }
-          acc += c[q];
-        }
+      int digit;
+      unsigned int above;
+      radix::find_digit(hist, static_cast<unsigned int>(remaining), &digit,
+                        &above);
+      if (tid == 0) {
         s_prefix = prefix | (static_cast<uint32_t>(digit) << shift);
-        s_remaining = remaining - static_cast<int>(acc);
+        s_remaining = remaining - static_cast<int>(above);
       }
     }
     __syncthreads();

@@ -7,7 +7,7 @@ show that its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,7 +16,7 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"cluster_rank": 0, "merge_serve": 0, "merge_serve_ds": 0,
             "fused_gather_rank": 0, "vq_assign": 0, "inbatch_softmax": 0,
-            "inbatch_softmax_bwd": 0, "ema_segment_sum": 0}
+            "inbatch_softmax_bwd": 0, "ema_segment_sum": 0, "topk_dot": 0}
 
 # dynamic shared memory a block may take on Hopper (sm_90), less each
 # kernel's static shared memory
@@ -25,7 +25,7 @@ _MAX_DYN_SMEM = {"cluster_rank": 232_448 - 4_096,
                  "merge_serve_ds": 232_448 - 16_384,
                  "fused_gather_rank": 232_448 - 16_384,
                  "vq_assign": 232_448, "inbatch_softmax": 232_448,
-                 "ema_segment_sum": 232_448}
+                 "ema_segment_sum": 232_448, "topk_dot": 232_448}
 
 
 def reset_launches() -> None:
@@ -378,3 +378,102 @@ def ema_segment_sum(v: torch.Tensor, assignment: torch.Tensor,
     _raise_on_error(code, "ema_segment_sum")
     LAUNCHES["ema_segment_sum"] += 1
     return w_add, c_add
+
+
+_TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_TOPK_TILE = 64      # items per sub-tile of the kernel (csrc/topk_dot.cu)
+
+
+def _f32_input(t: torch.Tensor, name: str, ndim: int) -> torch.Tensor:
+    """fp32, bf16 or fp16 -> contiguous fp32 (the upcast is exact)."""
+    if t.dtype not in _TOPK_DTYPES:
+        raise TypeError(f"{name} must be float32, bfloat16 or float16, got "
+                        f"{t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
+    return t.to(torch.float32).contiguous()
+
+
+def _topk_chunk(dev: torch.device, n_query_tiles: int, n: int, k: int
+                ) -> int:
+    """Items per block: about 4 blocks an SM over the whole grid, at least
+    4k items and 1,024 (so the partials stay few), a multiple of the
+    sub-tile."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_chunks = max(1, 4 * sms // n_query_tiles)
+    chunk = max(-(-n // n_chunks), 4 * k, 1024)
+    return -(-chunk // _TOPK_TILE) * _TOPK_TILE
+
+
+def _merge_partials(part_val: torch.Tensor, part_key: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2: the top-k of each row of partials (B, P) by (score desc,
+    index asc): one sort of the kernel's unique int64 keys, whose low 31
+    bits are the index."""
+    order = torch.sort(part_key, dim=1).indices[:, :k]
+    idx = torch.gather(part_key, 1, order) & 0x7FFFFFFF
+    return torch.gather(part_val, 1, order), idx.to(torch.int32)
+
+
+def topk_dot(u: torch.Tensor, items: torch.Tensor, bias: torch.Tensor,
+             k: int, block_n: Optional[int] = 4096
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores = items @ u + bias in fp32 -> (top-k values fp32, indices
+    int32), descending, ties to the lower index.  u: (d,) -> (k,) each,
+    as the reference's ``ops.topk_dot``; u: (B, d) -> (B, k), the batched
+    oracle of ``baselines.brute_force.mips_topk``.  items (N, d), bias
+    (N,); fp32, bf16 or fp16 (upcast to fp32).  ``block_n`` is the items
+    one block of the kernel takes (rounded up to a multiple of 64;
+    ``None`` picks one that fills the card); the result does not depend
+    on it."""
+    if _on_cpu(u, items, bias):
+        return ref.topk_dot_ref(u, items, bias, k)
+    one = u.dim() == 1
+    u2 = _f32_input(u.reshape(1, -1) if one else u, "u", 2)
+    items = _f32_input(items, "items", 2)
+    bias = _f32_input(bias, "bias", 1)
+    b, d = u2.shape
+    n = items.shape[0]
+    if items.shape[1] != d:
+        raise ValueError(f"u has width {d}, items have width "
+                         f"{items.shape[1]}")
+    _check_rows("bias", bias, n)
+    if not 1 <= n < 2 ** 31 or d < 1:
+        raise ValueError(f"topk_dot takes 1 <= N < 2**31 and d >= 1; got "
+                         f"N={n}, d={d}")
+    if not 0 < k <= n:
+        raise ValueError(f"top-k {k} must lie in [1, N={n}]")
+    if block_n is not None and block_n < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
+    dev = u2.device
+    if b == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
+    lib = build.load("topk_dot")
+    # 64 queries a block (4 rows a thread) for batches, 16 for a few
+    # queries or where a 64-row block's running top-k does not fit
+    rpt = 4 if b > 16 else 1
+    if lib.topk_dot_smem_bytes(rpt, b, d, k) > _MAX_DYN_SMEM["topk_dot"]:
+        rpt = 1
+    _check_smem("topk_dot", lib.topk_dot_smem_bytes(rpt, b, d, k),
+                f"d={d}, k={k}")
+    tb = 16 * rpt
+    n_qt = -(-b // tb)
+    chunk = (_topk_chunk(dev, n_qt, n, k) if block_n is None
+             else -(-block_n // _TOPK_TILE) * _TOPK_TILE)
+    n_chunks = -(-n // chunk)
+    if n_chunks > 65_535:
+        raise ValueError(f"block_n={block_n} cuts N={n} into {n_chunks} "
+                         f"blocks; at most 65,535")
+    part_val = torch.empty((b, n_chunks * k), dtype=torch.float32,
+                           device=dev)
+    part_key = torch.empty((b, n_chunks * k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.topk_dot_launch(u2.data_ptr(), items.data_ptr(),
+                                   bias.data_ptr(), part_val.data_ptr(),
+                                   part_key.data_ptr(), b, n, d, k, chunk,
+                                   n_chunks, rpt, _stream(dev))
+    _raise_on_error(code, "topk_dot")
+    LAUNCHES["topk_dot"] += 1
+    vals, idx = _merge_partials(part_val, part_key, k)
+    return (vals[0], idx[0]) if one else (vals, idx)

@@ -25,6 +25,20 @@ def cluster_rank_ref(u: torch.Tensor, e: torch.Tensor, n: int
     return vals[:, :n].contiguous(), idx[:, :n].to(torch.int32)
 
 
+def topk_dot_ref(u: torch.Tensor, items: torch.Tensor, bias: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores = items @ u + bias in fp32 (bf16 inputs upcast) -> the top-k
+    (values fp32, indices int32) by descending score, ties to the lower
+    index (a stable sort).  u: (d,) -> (k,) each; u: (B, d) -> (B, k)."""
+    if not 0 < k <= items.shape[0]:
+        raise ValueError(f"top-k {k} must lie in [1, N={items.shape[0]}]")
+    items32, u32 = items.to(torch.float32), u.to(torch.float32)
+    scores = (items32 @ u32 if u.dim() == 1 else (items32 @ u32.T).T) \
+        + bias.to(torch.float32)
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k].contiguous(), idx[..., :k].to(torch.int32)
+
+
 def merge_serve_ref(cluster_scores: torch.Tensor, bias_lists: torch.Tensor,
                     lengths: torch.Tensor, chunk: int, target: int,
                     exact: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:

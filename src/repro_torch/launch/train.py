@@ -3,19 +3,23 @@
 ``train_svq`` trains the paper's retriever on the impression + candidate
 streams with the reference's production loop: Adagrad on the embedding
 tables and AdamW on the dense nets, gradient clipping, the EMA codebook
-and the real-time assignment write-back in every step.  It runs on
+and the real-time assignment write-back in every step.
+``eval_svq_recall`` reads the trained state's Recall@K.  Both run on
 ``cuda`` unless ``device="cpu"`` is passed.  ``train_svq_live`` (training
 into a live service through deltas) waits for ROADMAP.md item A8.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.baselines.brute_force import recall_at_k
 from repro_torch.configs.base import SVQConfig
+from repro_torch.core import assignment_store as astore
 from repro_torch.core import retriever
 from repro_torch.data.streaming import RecsysStream
 from repro_torch.optim import adagrad, adamw, clip_by_global_norm, \
@@ -53,17 +57,24 @@ def _svq_step_fn(cfg: SVQConfig, opt, device=None):
 
 
 def train_svq(cfg: SVQConfig, stream: RecsysStream, n_steps: int,
-              batch: int, seed: int = 0, device=None,
+              batch: int, ckpt_dir: Optional[str] = None,
+              log_every: int = 0, seed: int = 0, *, device=None,
               loop: Optional[LoopConfig] = None):
     """-> (params, index_state, loop_result).
 
-    ``loop`` sets the loop's other settings (its ``n_steps`` is replaced
-    by ``n_steps``); by default the metrics are read back every 10 steps,
-    as in the reference's trainer.  The init is drawn from a
+    The reference's positional order; ``ckpt_dir`` (checkpointing) is not
+    ported yet and must be None.  ``log_every`` prints the last recorded
+    metrics every that many steps (0 = silent).  ``loop`` sets the loop's
+    other settings (its ``n_steps`` and ``log_every`` are replaced by the
+    arguments); by default the metrics are read back every 10 steps, as
+    in the reference's trainer.  The init is drawn from a
     ``torch.Generator`` seeded with ``seed``, so its numbers differ from
     the reference's ``jax.random`` init; a parity run builds
     ``_svq_step_fn`` and ``run_loop`` from bridged params.
     """
+    if ckpt_dir is not None:
+        raise NotImplementedError("checkpointing in train_svq is not ported "
+                                  "yet: ROADMAP.md item A7")
     device = resolve_device(device)
     opt = _svq_opt()
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -76,6 +87,29 @@ def train_svq(cfg: SVQConfig, stream: RecsysStream, n_steps: int,
         return {"imp": stream.impression_batch(batch),
                 "cand": stream.candidate_batch(batch)}
 
-    loop_cfg = dataclasses.replace(loop or LoopConfig(), n_steps=n_steps)
+    loop_cfg = dataclasses.replace(loop or LoopConfig(), n_steps=n_steps,
+                                   log_every=log_every)
     res = run_loop(step_fn, state, batch_iter, loop_cfg)
     return res.state["params"], res.state["index"], res
+
+
+def eval_svq_recall(cfg: SVQConfig, params, index_state,
+                    stream: RecsysStream, n_users: int = 64, k: int = 50,
+                    *, device=None) -> Dict[str, float]:
+    """Recall@K of the VQ retrieval path vs the stream's ground-truth
+    affinity: a serving index built from the store serves users
+    0..n_users-1 (mod the stream's users), and the first K ranked ids of
+    each are held to ``stream.true_topk``.  ``params`` and
+    ``index_state`` lie on ``device`` (``cuda`` unless named)."""
+    device = resolve_device(device)
+    idx = astore.build_serving_index(index_state.store, cfg.n_clusters)
+    users = np.arange(n_users) % stream.cfg.n_users
+    batch = dict(user_id=users.astype(np.int32),
+                 hist=stream.user_hist[users].astype(np.int32))
+    with torch.no_grad():
+        out = retriever.serve(params, index_state, cfg, idx, batch,
+                              device=device)
+    got = out["item_ids"].cpu().numpy()[:, :k]
+    truth = stream.true_topk(users, k)
+    return dict(recall=recall_at_k(got, truth),
+                served_valid=float(out["valid"].cpu().numpy().mean()))

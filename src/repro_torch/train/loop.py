@@ -1,8 +1,9 @@
 """Generic training loop (the reference's ``train/loop.py``).
 
 Per step: fetch the batch, run ``step_fn``, record the metrics as floats
-every ``sync_every`` steps (which waits for the card), and call the
-``on_step(step, state, batch)`` hook.  Checkpointing (ROADMAP.md A7) and
+every ``sync_every`` steps (which waits for the card), call the
+``on_step(step, state, batch)`` hook, and every ``log_every`` steps print
+the last recorded metrics.  Checkpointing (ROADMAP.md A7) and
 the stage-latency telemetry and straggler accounting (A8) are not ported
 yet: ``ckpt_dir``, ``stats`` and ``registry`` raise.
 """
@@ -17,6 +18,7 @@ class LoopConfig:
     n_steps: int = 100
     ckpt_dir: Optional[str] = None          # checkpointing (A7)
     sync_every: int = 10
+    log_every: int = 0                      # 0 = silent
     stats: Optional[Any] = None             # telemetry sink (A8)
     registry: Optional[Any] = None          # metric registry (A8)
     on_step: Optional[Callable[[int, Any, Any], None]] = None
@@ -50,4 +52,6 @@ def run_loop(step_fn: Callable[[Any, Any], tuple], init_state: Any,
             history.append({"step": step, **metrics})
         if cfg.on_step is not None:
             cfg.on_step(step, state, batch)
+        if cfg.log_every and step % cfg.log_every == 0 and history:
+            print(f"[loop] step {step}: {history[-1]}")
     return LoopResult(state=state, metrics=history, steps_run=cfg.n_steps)

@@ -554,3 +554,132 @@ def test_fused_and_sharded_service_on_card_match_single_device(
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert want["valid"].any()
+
+
+# ---------------------------------------------------------------------------
+# topk_dot and the exact MIPS oracle
+# ---------------------------------------------------------------------------
+
+NEG = -1e30
+
+
+def _topk_case(g, b, n, d, integer=False, dup=0, masked=0):
+    """u (B, d), items (N, d), bias (N,) as numpy fp32.  ``dup`` items
+    repeat item 0 at spread slots (ties across blocks); ``masked`` slots
+    get zero rows and bias NEG (the oracle's empty slots)."""
+    if integer:
+        u = g.integers(-2, 3, size=(b, d)).astype(np.float32)
+        items = g.integers(-1, 2, size=(n, d)).astype(np.float32)
+        bias = g.integers(-2, 3, size=n).astype(np.float32)
+    else:
+        u = g.normal(size=(b, d)).astype(np.float32)
+        items = g.normal(size=(n, d)).astype(np.float32)
+        bias = g.normal(size=n).astype(np.float32)
+    if dup:
+        at = g.choice(n, size=dup, replace=False)
+        items[at], bias[at] = items[0], bias[0]
+    if masked:
+        at = g.choice(n, size=masked, replace=False)
+        items[at], bias[at] = 0.0, NEG
+    return u, items, bias
+
+
+def _check_topk(cuda, u, items, bias, k, bitwise, block_n=None):
+    u, items, bias = (torch.from_numpy(x).to(cuda) for x in (u, items, bias))
+    before = ops.LAUNCHES["topk_dot"]
+    vals, idx = ops.topk_dot(u, items, bias, k, block_n=block_n)
+    rv, ri = ref.topk_dot_ref(u, items, bias, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_dot"] == before + 1
+    assert vals.shape == rv.shape and idx.dtype == torch.int32
+    if bitwise:
+        assert torch.equal(idx, ri)
+        assert torch.equal(vals.view(torch.int32), rv.view(torch.int32))
+        return vals, idx
+    torch.testing.assert_close(vals, rv, rtol=1e-5, atol=1e-6)
+    u2 = u.reshape(-1, u.shape[-1]).float()
+    scores = u2 @ items.float().T + bias.float()
+    assert _near_tie_ok_rows(scores, idx.reshape(u2.shape[0], -1),
+                             ri.reshape(u2.shape[0], -1))
+    return vals, idx
+
+
+def _near_tie_ok_rows(scores, got, want, rel=1e-5):
+    a = torch.gather(scores, 1, got.long())
+    b = torch.gather(scores, 1, want.long())
+    near = (a - b).abs() <= rel * b.abs().clamp(min=1.0)
+    return bool(torch.all(near[got != want]))
+
+
+@pytest.mark.parametrize("b,n,d,k,block_n,dup,masked", [
+    (1, 1000, 32, 8, 256, 0, 0), (1, 5000, 64, 50, 512, 40, 0),
+    (1, 777, 16, 16, 128, 0, 0),           # N not a multiple of the block
+    (3, 300, 8, 300, 4096, 0, 0),          # k == N
+    (1, 3000, 64, 512, 1024, 100, 2600),   # fewer live slots than k
+    (70, 20000, 64, 20, None, 300, 500), (17, 4099, 24, 11, 128, 10, 0)])
+def test_topk_dot_kernel_ties_bitwise(cuda, b, n, d, k, block_n, dup,
+                                      masked):
+    """Integer-valued inputs with planted ties within and across blocks:
+    values and ids bitwise the plain version, ties to the lower index."""
+    g = np.random.default_rng(n + k)
+    u, items, bias = _topk_case(g, b, n, d, integer=True, dup=dup,
+                                masked=masked)
+    _check_topk(cuda, u[0] if b == 1 else u, items, bias, k, True, block_n)
+
+
+@pytest.mark.parametrize("b,n,d,k", [(1, 100_000, 64, 512),
+                                     (1, 100_000, 64, 50),
+                                     (512, 50_000, 64, 20), (33, 999, 7, 9)])
+def test_topk_dot_kernel_random_near_ties(cuda, b, n, d, k):
+    g = np.random.default_rng(b + n)
+    u, items, bias = _topk_case(g, b, n, d)
+    _check_topk(cuda, u, items, bias, k, False)
+
+
+def test_topk_dot_kernel_bf16_and_block_n(cuda):
+    """bf16 inputs are upcast (exact), so bf16 is the fp32 result on the
+    upcast inputs; the result does not depend on block_n."""
+    g = np.random.default_rng(7)
+    u, items, bias = (torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+                      for x in _topk_case(g, 5, 3000, 24))
+    want = ops.topk_dot(u.float(), items.float(), bias.float(), 11)
+    for block_n in (128, 300, 4096, None):
+        got = ops.topk_dot(u, items, bias, 11, block_n=block_n)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+def test_topk_dot_rejects_bad_inputs_on_card(cuda):
+    items = torch.zeros((10, 4), device=cuda)
+    bias = torch.zeros((10,), device=cuda)
+    with pytest.raises(ValueError):
+        ops.topk_dot(torch.zeros(4, device=cuda), items, bias, 11)   # k > N
+    with pytest.raises(ValueError):
+        ops.topk_dot(torch.zeros(5, device=cuda), items, bias, 3)    # width
+    with pytest.raises(TypeError):
+        ops.topk_dot(torch.zeros(4, device=cuda, dtype=torch.int32), items,
+                     bias, 3)
+
+
+def test_mips_topk_on_card_launches_the_kernel(cuda, monkeypatch):
+    """mips_topk on CUDA tensors is one topk_dot launch, bitwise the plain
+    version on integer inputs (bias None = zero); with the kernel library
+    unloadable it raises instead of falling back."""
+    from repro_torch.baselines import brute_force
+    from repro_torch.kernels import build
+    g = np.random.default_rng(11)
+    u, items, _ = _topk_case(g, 40, 5000, 16, integer=True, dup=50)
+    u, items = torch.from_numpy(u).to(cuda), torch.from_numpy(items).to(cuda)
+    before = ops.LAUNCHES["topk_dot"]
+    vals, idx = brute_force.mips_topk(u, items, None, 30)
+    rv, ri = ref.topk_dot_ref(u, items, torch.zeros(5000, device=cuda), 30)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_dot"] == before + 1
+    assert torch.equal(idx, ri) and torch.equal(vals, rv)
+
+    def fail(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", fail)
+    with pytest.raises(RuntimeError, match="cannot load"):
+        brute_force.mips_topk(u, items, None, 30)
