@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve, train and quality paths on one CUDA card.
+"""Drive the PyTorch port's serve, train, quality and recsys paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
-Builds the seven hand-written kernel sources from
+Builds the eight hand-written kernel sources from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at once) and
 holds each kernel to its plain PyTorch version at the shapes of the full
 ``SVQConfig()`` (K=16384 clusters, d=64; serve: C=128, L=256, chunk=8,
 S=512, batches of 512 users over 2,097,152 items; train: batches of
 65536; the exact MIPS oracle ``topk_dot``: one query against 1,000,000
-candidates and 512 queries against the 2,097,152-slot store).  Then it
-serves full-width batches through ``RetrievalService`` unfused, fused
-(``fused_gather_rank``) and on 4 logical shards (unfused and fused),
-each held to the unfused single-device service's outputs; serves them
-again with the shadow recall probes on (``enable_probes``: every batch
-re-scored by the exact oracle, which launches ``topk_dot``); trains 3
-full-width steps with ``train_svq`` through the train kernels, serves a
+candidates and 512 queries against the 2,097,152-slot store) and of the
+recsys families (``embedding_bag``: DLRM-RM2's 8,000,000 x 64 multi-hot
+tables at B=512 and 262,144, two-tower's 16,777,216 x 256 history table).
+Then it serves full-width batches through ``RetrievalService`` unfused,
+fused (``fused_gather_rank``) and on 4 logical shards (unfused and
+fused), each held to the unfused single-device service's outputs; serves
+them again with the shadow recall probes on (``enable_probes``: every
+batch re-scored by the exact oracle, which launches ``topk_dot``); trains
+3 full-width steps with ``train_svq`` through the train kernels, serves a
 batch from the trained state and reads its recall (``eval_svq_recall``,
 the brute-force ceiling, the store's collision rate); and runs a small
 model on the card and on the CPU, for serving (unfused, fused, sharded),
-the quality path and 3 train steps, to compare them.  The launch
-counters, set to 0 before each path and read after it, show that each
-path went through its kernels.  Prints one line per phase, then a JSON
-line of per-kernel numbers, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Exits nonzero, without that last
+the quality path and 3 train steps, to compare them.  The recsys phases
+serve DLRM-RM2 ``CONFIG`` at full width (batches of 512, one of 262,144,
+one context against 1,000,000 candidates; 4 ``embedding_bag`` launches a
+forward), two-tower at its published widths with its tables cut to
+16,777,216 rows (serve, and a top-50 retrieval over 1,000,000
+candidates), DIN and BST ``CONFIG`` (serve), and the four smoke configs
+on the card and on the CPU (serve, retrieval, loss, 5 train steps).  The
+launch counters, set to 0 before each path and read after it, show that
+each path went through its kernels.  Prints one line per phase, then a
+JSON line of per-kernel numbers, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Exits nonzero, without that last
 line, if there is no card or any phase fails.
 """
 from __future__ import annotations
@@ -34,6 +43,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -65,6 +75,16 @@ ANNOTATIONS = SERVE_KERNELS + ("fused_gather_rank", "stage_merge",
                                "ema_segment_sum", "index_sort")
 # Adam's learning rate in the SVQ trainer (launch/train.py _svq_opt)
 ADAM_LR = 1e-3
+SERVE_BULK = 262_144         # requests of the serve_bulk shape
+DLRM_VOCAB = 8_000_000       # rows of DLRM-RM2's 4 multi-hot tables
+# two-tower's three 33,554,432-row tables, cut to fit one 80 GB card
+TWO_TOWER_VOCAB = 16_777_216
+SMOKE_STEPS = 5              # train_arch_smoke's default
+# param leaves whose every shift a softmax ignores (zero gradient in exact
+# arithmetic; ROADMAP C9), by recsys arch
+SHIFT_FREE = {"two-tower-retrieval": [("item_tower", "layers", 1, "b")],
+              "din": [("attn", "layers", 2, "b")],
+              "bst": [("blocks", 0, "wk", "b")]}
 
 
 def phase(label: str, **fields) -> None:
@@ -1142,11 +1162,12 @@ def topk_vs_plain(ops, ref, u, items, bias, k, bitwise, block_n=None):
     return float((vals - rv).abs().max()), n_diff
 
 
-def topk_device_ms(fn, calls: int = 3) -> tuple:
-    """Device time per call of ``fn`` under torch.profiler: the topk_dot
-    kernel's, and that of every kernel the call launches (stage 2's sort
-    and gathers too).  A call's event-timed ms also holds its host time
-    where the host is the slower side."""
+def kernel_device_ms(fn, kernel: str, calls: int = 3) -> tuple:
+    """Device time per call of ``fn`` under torch.profiler: that of the
+    kernels whose name holds ``kernel``, and that of every kernel the call
+    launches (topk_dot's stage 2 sort and gathers too).  A call's
+    event-timed ms also holds its host time where the host is the slower
+    side."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1159,7 +1180,7 @@ def topk_device_ms(fn, calls: int = 3) -> tuple:
                if str(e.device_type).endswith("CUDA")]
     total = sum(dev_us(e, True) for e in kernels) / 1e3 / calls
     own = sum(dev_us(e, True) for e in kernels
-              if "topk_dot_kernel" in e.key) / 1e3 / calls
+              if kernel in e.key) / 1e3 / calls
     return own, total
 
 
@@ -1209,8 +1230,9 @@ def check_topk_dot(ops, ref, cfg, dev, gen) -> dict:
                              iters=5, warmup=1)
         t_bound, by = bound_ms(4 * (b * d + n * d + n) + 8 * b * k,
                                2 * b * n * d)
-        kernel_dev, call_dev = topk_device_ms(
-            lambda: ops.topk_dot(u, items, bias, k, block_n=None))
+        kernel_dev, call_dev = kernel_device_ms(
+            lambda: ops.topk_dot(u, items, bias, k, block_n=None),
+            "topk_dot_kernel")
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=t_bound, bound_by=by,
                            kernel_device_ms=kernel_dev,
@@ -1428,6 +1450,530 @@ def small_train_reference(smoke, dev) -> None:
                - ref_run.state["params"]["item_tower"]["layers"][-1]["b"])
               .abs().max()))
 
+# ---------------------------------------------------------------------------
+# The recsys families (DLRM-RM2, two-tower, DIN, BST) and embedding_bag
+# ---------------------------------------------------------------------------
+
+def embag_ids(gen, dev, v, b, bag):
+    """(b, bag) int64 ids in [0, V): row 0 starts with 0, row 1 holds the
+    table's top rows (V-1 down), row 2 repeats an id inside its bag, the
+    last row ends with V-1."""
+    ids = torch.randint(0, v, (b, bag), generator=gen, device=dev)
+    ids[0, 0] = 0
+    ids[1] = v - 1 - torch.arange(bag, device=dev)
+    if bag > 1:
+        ids[2, 1] = ids[2, 0]
+    ids[-1, -1] = v - 1
+    return ids
+
+
+def embag_order_bound(ref, table, ids, combiner):
+    """Per element, what two fp32 sums of the same bag in different orders
+    may differ by: bag * eps * sum|x| (each order is within
+    (bag-1) * eps/2 * sum|x| of the exact sum); for the mean, that over
+    bag plus the quotient's own rounding."""
+    bag = ids.shape[-1]
+    eps = torch.finfo(torch.float32).eps
+    mag = table[ids.long()].float().abs().sum(-2)     # gathered, not V x d
+    if combiner == "mean":
+        return eps * mag + eps * ref.embedding_bag_ref(table, ids,
+                                                       "mean").abs()
+    return bag * eps * mag
+
+
+def embag_vs_plain(ops, ref, table, ids, combiner, tol) -> float:
+    """Kernel vs plain, two launches bitwise equal.  ``tol`` "bitwise"
+    (integer-valued tables), "close" (the models' N(0, 1/d) tables:
+    within rtol 1e-6 / atol 1e-6 and the summation-order bound) or
+    "order" (any scale: within the summation-order bound)."""
+    got = ops.embedding_bag(table, ids, combiner)
+    again = ops.embedding_bag(table, ids, combiner)
+    want = ref.embedding_bag_ref(table, ids, combiner)
+    torch.cuda.synchronize()
+    what = f"embedding_bag {tuple(table.shape)} {table.dtype} B={ids.shape}"
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{what}: two launches differ")
+    if tol == "bitwise":
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{what}: not bitwise the plain version on "
+                                 f"an integer-valued table")
+        return 0.0
+    err = (got - want).abs()
+    if not bool((err <= embag_order_bound(ref, table, ids,
+                                          combiner)).all()):
+        raise AssertionError(f"{what}: beyond bag * eps * sum|x| of the "
+                             f"plain version")
+    if tol == "close" and not torch.allclose(got, want, rtol=1e-6,
+                                             atol=1e-6):
+        raise AssertionError(f"{what}: beyond rtol 1e-6 / atol 1e-6 of the "
+                             f"plain version")
+    return float(err.max())
+
+
+def embag_times(ops, ref, table, ids, combiner) -> dict:
+    """Kernel, plain and library ms at one shape, the kernel's device ms,
+    and the byte bound (gathered rows, ids, out).  The library call
+    (``F.embedding_bag``) is timed on fp32 tables only."""
+    b, bag = ids.shape
+    d = table.shape[1]
+    iters = 20 if b <= BATCH else 10
+    ms = time_ms(lambda: ops.embedding_bag(table, ids, combiner), iters)
+    plain_ms = time_ms(lambda: ref.embedding_bag_ref(table, ids, combiner),
+                       iters)
+    lib_ms = (time_ms(lambda: torch.nn.functional.embedding_bag(
+        ids, table, mode=combiner), iters)
+        if table.dtype == torch.float32 else None)
+    kernel_dev, _ = kernel_device_ms(
+        lambda: ops.embedding_bag(table, ids, combiner), "embag_kernel")
+    n_bytes = b * bag * d * table.element_size() + b * d * 4 + b * bag * 8
+    t_bound, by = bound_ms(n_bytes, b * bag * d)
+    return dict(ms=ms, kernel_device_ms=kernel_dev, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=t_bound, bound_by=by,
+                bound_bytes=n_bytes)
+
+
+def check_embedding_bag(ops, ref, dev, gen) -> dict:
+    """Kernel vs plain at DLRM-RM2's multi-hot tables (V=8,000,000, d=64,
+    bag 20, sum; B=512 and 262,144), two-tower's history (V=16,777,216,
+    d=256, bag 50, mean; B=512: row offsets past 2^32 elements), a bf16
+    table read in place, and d=12 with an odd B.  Bitwise on
+    integer-valued tables, within rtol 1e-6 / atol 1e-6 on random fp32
+    ones at the models' N(0, 1/d) scale.  Times at each shape; the JSON
+    row carries serve_bulk's."""
+    errs, times = {}, {}
+    table = torch.empty((DLRM_VOCAB, 64), device=dev)
+    ids = {name: embag_ids(gen, dev, DLRM_VOCAB, b, 20)
+           for name, b in (("dlrm_serve_p99", BATCH),
+                           ("dlrm_serve_bulk", SERVE_BULK))}
+    table.random_(-8, 9, generator=gen)
+    for name, i in ids.items():
+        embag_vs_plain(ops, ref, table, i, "sum", "bitwise")
+    t16 = table.to(torch.bfloat16)
+    embag_vs_plain(ops, ref, t16, ids["dlrm_serve_bulk"], "sum",
+                   "bitwise")
+    table.normal_(generator=gen).mul_(64 ** -0.5)
+    for name, i in ids.items():
+        errs[name] = embag_vs_plain(ops, ref, table, i, "sum", "close")
+        times[name] = embag_times(ops, ref, table, i, "sum")
+    t16.copy_(table)
+    errs["dlrm_bf16"] = embag_vs_plain(ops, ref, t16, ids["dlrm_serve_bulk"],
+                                       "sum", "close")
+    times["dlrm_bf16_serve_bulk"] = embag_times(
+        ops, ref, t16, ids["dlrm_serve_bulk"], "sum")
+    del table, t16, ids
+    torch.cuda.empty_cache()
+
+    table = torch.empty((TWO_TOWER_VOCAB, 256), device=dev)
+    i = embag_ids(gen, dev, TWO_TOWER_VOCAB, BATCH, 50)
+    table.random_(-8, 9, generator=gen)
+    embag_vs_plain(ops, ref, table, i, "mean", "bitwise")
+    table.normal_(generator=gen).mul_(256 ** -0.5)
+    errs["two_tower_serve_p99"] = embag_vs_plain(ops, ref, table, i, "mean",
+                                                 "close")
+    times["two_tower_serve_p99"] = embag_times(ops, ref, table, i, "mean")
+    del table
+    torch.cuda.empty_cache()
+
+    small = torch.empty((100_003, 12), device=dev).random_(-8, 9,
+                                                           generator=gen)
+    i = embag_ids(gen, dev, 100_003, 1_001, 7)
+    embag_vs_plain(ops, ref, small, i, "mean", "bitwise")
+    embag_vs_plain(ops, ref, small, i.to(torch.int32), "sum", "bitwise")
+    small.normal_(generator=gen).mul_(12 ** -0.5)
+    errs["d12_odd_b"] = embag_vs_plain(ops, ref, small, i, "mean", "close")
+    small.normal_(generator=gen)
+    order_err = {"d12_odd_b_unit": embag_vs_plain(ops, ref, small, i, "mean",
+                                                  "order"),
+                 "d12_odd_b_unit_sum": embag_vs_plain(ops, ref, small, i,
+                                                      "sum", "order")}
+    phase("embedding_bag", max_abs_err=errs,
+          integer_tables_bitwise=("dlrm B=512", "dlrm B=262144", "dlrm bf16",
+                                  "two_tower B=512", "d=12 B=1001 int32 "
+                                  "and int64 ids"),
+          random_tol="rtol=1e-6 atol=1e-6 and bag*eps*sum|x|",
+          unit_scale_max_abs_err=order_err,
+          unit_scale_tol="bag*eps*sum|x| per element")
+    phase("embedding_bag_time", **{name: {k: (round(v, 5)
+                                              if isinstance(v, float) else v)
+                                          for k, v in t.items()}
+                                   for name, t in times.items()})
+    t = times["dlrm_serve_bulk"]
+    return dict(name="embedding_bag", route="cuda",
+                source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+                replaces="src/repro/kernels/embedding_bag.py:27",
+                max_abs_err=max(errs.values()), ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"])
+
+
+def full_batch(cfg, gen, dev, b) -> dict:
+    """A request batch of ``cfg``'s family on the card, each field's raw
+    ids drawn uniformly over its table's rows (the model hashes them)."""
+    vocab = {t.name: t.vocab for t in cfg.tables}
+
+    def ids(name, shape):
+        return torch.randint(0, vocab[name], shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    if cfg.kind == "dlrm":
+        out = dict(dense=torch.randn((b, cfg.n_dense), generator=gen,
+                                     device=dev))
+        for t in cfg.tables:
+            out[t.name] = ids(t.name, (b, t.bag_size) if t.bag_size > 1
+                              else (b,))
+        return out
+    if cfg.kind == "two_tower":
+        bag = next(t.bag_size for t in cfg.tables if t.name == "user_hist")
+        return dict(user_id=ids("user_id", (b,)),
+                    user_hist=ids("user_hist", (b, bag)),
+                    item_id=ids("item_id", (b,)),
+                    item_cate=ids("item_cate", (b,)))
+    s = cfg.seq_len
+    return dict(user_id=ids("user_id", (b,)), context=ids("context", (b,)),
+                hist_items=ids("item_id", (b, s)),
+                hist_cates=ids("cate_id", (b, s)),
+                target_item=ids("item_id", (b,)),
+                target_cate=ids("cate_id", (b,)))
+
+
+def timed_ms(fn):
+    """-> (fn(), host ms around it, ending in a device sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_probabilities(out, n, what) -> None:
+    if out.shape != (n,) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: output {tuple(out.shape)} not {n} "
+                             f"finite values")
+    if not bool(((out >= 0) & (out <= 1)).all()):
+        raise AssertionError(f"{what}: scores outside [0, 1]")
+
+
+def serve_recsys(ops, mod, cfg, params, batches, per_call, what):
+    """A warm-up call, then ``batches`` served with the launch counts set
+    to 0 just before; ``per_call`` embedding_bag launches each, checked
+    call by call -> (outputs, host ms per batch, launches)."""
+    mod.serve(params, cfg, batches[0])
+    ops.reset_launches()
+    outs, times = [], []
+    for batch in batches:
+        before = ops.LAUNCHES["embedding_bag"]
+        out, ms = timed_ms(lambda: mod.serve(params, cfg, batch))
+        if ops.LAUNCHES["embedding_bag"] - before != per_call:
+            raise AssertionError(
+                f"{what}: {ops.LAUNCHES['embedding_bag'] - before} "
+                f"embedding_bag launches in a forward, not {per_call}")
+        outs.append(out)
+        times.append(ms)
+    launches = dict(ops.LAUNCHES)
+    check_launches(launches, {"embedding_bag": per_call * len(batches)}, what)
+    return outs, times, launches
+
+
+def recsys_path(ops, ref, dev) -> dict:
+    """DLRM-RM2 ``CONFIG`` at full width (26 tables, 10.6 GB in fp32):
+    4 batches of 512 (serve_p99), one of 262,144 in a single call
+    (serve_bulk) and one dense context against 1,000,000 candidate rows
+    (retrieval_cand).  Holds: 4 embedding_bag launches a forward (one a
+    multi-hot table), scores finite in [0, 1], and a forward at B=512
+    within rtol 1e-5 / atol 1e-5 of the same forward with the plain
+    embedding_bag (bag sums in another order)."""
+    from repro_torch.configs.dlrm_rm2 import CONFIG as cfg
+    from repro_torch.core.freq_estimator import hash_ids
+    from repro_torch.models.recsys import dlrm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    (params, init_ms) = timed_ms(lambda: dlrm.init(gen, cfg, dev))
+    table_gb = sum(t.numel() * t.element_size()
+                   for t in params["tables"].values()) / 1e9
+    batches = [full_batch(cfg, gen, dev, BATCH) for _ in range(N_BATCHES)]
+    n_multi = sum(t.bag_size > 1 for t in cfg.tables)
+    with torch.no_grad():
+        outs, times, launches = serve_recsys(ops, dlrm, cfg, params, batches,
+                                             n_multi, "DLRM-RM2 serve_p99")
+        for out in outs:
+            check_probabilities(out, BATCH, "DLRM-RM2 serve_p99")
+        logits = dlrm.forward(params, cfg, batches[0])
+        with mock.patch.object(ops, "embedding_bag",
+                               ref.embedding_bag_ref):
+            plain = dlrm.forward(params, cfg, batches[0])
+        swap_err = float((logits - plain).abs().max())
+        if not torch.allclose(logits, plain, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"DLRM-RM2: forward with the kernel differs "
+                                 f"from the plain embedding_bag's by "
+                                 f"{swap_err}")
+        p99_peak = torch.cuda.max_memory_allocated() / 1e9
+        del batches
+
+        bulk = full_batch(cfg, gen, dev, SERVE_BULK)
+        outs, bulk_times, _ = serve_recsys(ops, dlrm, cfg, params,
+                                           [bulk] * 3, n_multi,
+                                           "DLRM-RM2 serve_bulk")
+        check_probabilities(outs[0], SERVE_BULK, "DLRM-RM2 serve_bulk")
+        hash_ms = time_ms(lambda: [hash_ids(bulk[t.name], t.vocab)
+                                   for t in cfg.tables], 10)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = timed_ms(lambda: dlrm.serve(params, cfg, bulk))
+        busy_ms, top = device_breakdown(prof, n_top=8)
+        del outs, bulk
+        bulk_peak = torch.cuda.max_memory_allocated() / 1e9
+
+        cand = full_batch(cfg, gen, dev, RETRIEVAL_CAND)
+        cand["dense"] = cand["dense"][:1]
+        dlrm.retrieval(params, cfg, cand)
+        ret_times = []
+        for _ in range(3):
+            before = ops.LAUNCHES["embedding_bag"]
+            scores, ms = timed_ms(lambda: dlrm.retrieval(params, cfg, cand))
+            if ops.LAUNCHES["embedding_bag"] - before != n_multi:
+                raise AssertionError("DLRM-RM2 retrieval_cand: embedding_bag "
+                                     "launches")
+            ret_times.append(ms)
+        if scores.shape != (RETRIEVAL_CAND,) or not bool(
+                torch.isfinite(scores).all()):
+            raise AssertionError("DLRM-RM2 retrieval_cand: scores not "
+                                 "finite of shape (C,)")
+        del cand, scores
+    phase("recsys_path", model="dlrm-rm2 CONFIG", tables_gb=table_gb,
+          init_ms=init_ms, serve_p99_ms=times,
+          serve_p99_ms_median=statistics.median(times),
+          serve_bulk_ms=bulk_times,
+          serve_bulk_ms_median=statistics.median(bulk_times),
+          retrieval_cand_ms=ret_times,
+          retrieval_cand_ms_median=statistics.median(ret_times),
+          embedding_bag_launches_per_forward=n_multi,
+          kernel_vs_plain_forward_max_abs_err=swap_err,
+          hash_ms_bulk=hash_ms, peak_gb_serve_p99=p99_peak,
+          peak_gb_bulk=bulk_peak,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    phase("recsys_bulk_profile", wall_ms=prof_wall, device_busy_ms=busy_ms,
+          idle_share=1 - busy_ms / prof_wall, top_kernels_ms=top)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_top_k_ties(scores, top_s, top_i, k, what) -> int:
+    """top-k of ``scores`` by descending score, ties to the lower index
+    (as lax.top_k) -> the number of ties inside the top-k."""
+    top_i = top_i.long()
+    if top_i.numel() != k or not torch.equal(scores[top_i], top_s):
+        raise AssertionError(f"{what}: top scores are not the scores of the "
+                             f"top ids")
+    if not torch.equal(top_s, torch.topk(scores, k).values):
+        raise AssertionError(f"{what}: not the k best scores")
+    same = top_s[1:] == top_s[:-1]
+    if bool((top_s[1:] > top_s[:-1]).any()) or bool(
+            (top_i[1:][same] <= top_i[:-1][same]).any()):
+        raise AssertionError(f"{what}: not descending, ties to the lower "
+                             f"index")
+    kth = top_s[-1]
+    tied = torch.nonzero(scores == kth)[:, 0]
+    taken = top_i[top_s == kth]
+    if not torch.equal(torch.sort(taken).values, tied[:taken.numel()]):
+        raise AssertionError(f"{what}: ties at the k-th score not taken "
+                             f"from the lowest index")
+    return int(same.sum())
+
+
+def two_tower_path(ops, dev) -> dict:
+    """Two-tower at its published widths (d=256, towers 1024-512-256, bag
+    50, item_cate 65,536 rows) with the three 33,554,432-row tables cut to
+    16,777,216 rows (51.5 GB in fp32; the published 103 GB does not fit
+    in 80 GB): 4 batches of 512 and one user against 1,000,000 candidates
+    (top-50).  Holds 1 embedding_bag launch per encode_user and the
+    top-k's ties to the lower index, with the best candidate planted at
+    8 more positions (exact ties where the item tower gives equal rows
+    equal outputs)."""
+    import dataclasses
+    from repro_torch.configs.two_tower_retrieval import CONFIG
+    from repro_torch.models.recsys import two_tower
+    cfg = dataclasses.replace(CONFIG, tables=tuple(
+        dataclasses.replace(t, vocab=min(t.vocab, TWO_TOWER_VOCAB))
+        for t in CONFIG.tables))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = timed_ms(lambda: two_tower.init(gen, cfg, dev))
+    table_gb = sum(t.numel() * t.element_size()
+                   for t in params["tables"].values()) / 1e9
+    batches = [full_batch(cfg, gen, dev, BATCH) for _ in range(N_BATCHES)]
+    with torch.no_grad():
+        outs, times, launches = serve_recsys(ops, two_tower, cfg, params,
+                                             batches, 1, "two-tower serve")
+        for out in outs:
+            if out.shape != (BATCH,) or not bool(torch.isfinite(out).all()):
+                raise AssertionError("two-tower serve: scores not finite")
+        user = full_batch(cfg, gen, dev, 1)
+        cand = dict(user_id=user["user_id"], user_hist=user["user_hist"],
+                    cand_items=torch.randint(0, TWO_TOWER_VOCAB,
+                                             (RETRIEVAL_CAND,), generator=gen,
+                                             device=dev, dtype=torch.int32),
+                    cand_cates=torch.randint(0, 65_536, (RETRIEVAL_CAND,),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32))
+        best = int(two_tower.retrieval(params, cfg, cand)["scores"].argmax())
+        at = torch.randint(0, RETRIEVAL_CAND, (8,), generator=gen,
+                           device=dev)
+        cand["cand_items"][at] = int(cand["cand_items"][best])
+        cand["cand_cates"][at] = int(cand["cand_cates"][best])
+        ret_times = []
+        for _ in range(3):
+            before = ops.LAUNCHES["embedding_bag"]
+            out, ms = timed_ms(lambda: two_tower.retrieval(params, cfg, cand,
+                                                           top_k=50))
+            if ops.LAUNCHES["embedding_bag"] - before != 1:
+                raise AssertionError("two-tower retrieval: embedding_bag "
+                                     "launches")
+            ret_times.append(ms)
+        if not bool(torch.isfinite(out["scores"]).all()):
+            raise AssertionError("two-tower retrieval: scores not finite")
+        ties = check_top_k_ties(out["scores"], out["top_scores"],
+                                out["top_idx"], 50, "two-tower retrieval")
+        del cand, out
+    phase("two_tower_path", model="two-tower-retrieval CONFIG, tables cut "
+          f"to {TWO_TOWER_VOCAB} rows", tables_gb=table_gb, init_ms=init_ms,
+          serve_p99_ms=times, serve_p99_ms_median=statistics.median(times),
+          retrieval_cand_top50_ms=ret_times,
+          retrieval_cand_ms_median=statistics.median(ret_times),
+          embedding_bag_launches_per_encode_user=1,
+          ties_in_top50=ties, top_k_ties_to_lower_index=True,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def din_bst_path(ops, dev) -> None:
+    """DIN and BST ``CONFIG`` at full width (1.8 and 3.2 GB of tables):
+    4 batches of 512 each, scores finite in [0, 1], no embedding_bag on
+    their path.  DIN's retrieval_cand is left out: its (1, C, S, 8d)
+    interaction at C=1,000,000, S=100, d=18 is 57.6 GB."""
+    from repro_torch.configs import bst as bst_cfg
+    from repro_torch.configs import din as din_cfg
+    from repro_torch.models.recsys import bst, din
+    readings = {}
+    for name, mod, cfg in (("din", din, din_cfg.CONFIG),
+                           ("bst", bst, bst_cfg.CONFIG)):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        params = mod.init(gen, cfg, dev)
+        batches = [full_batch(cfg, gen, dev, BATCH) for _ in range(N_BATCHES)]
+        with torch.no_grad():
+            outs, times, _ = serve_recsys(ops, mod, cfg, params, batches, 0,
+                                          f"{name} serve")
+        for out in outs:
+            check_probabilities(out, BATCH, f"{name} serve")
+        readings[name] = dict(
+            tables_gb=sum(t.numel() * 4 for t in params["tables"].values())
+            / 1e9, serve_p99_ms=times,
+            serve_p99_ms_median=statistics.median(times),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params, batches, outs
+        torch.cuda.empty_cache()
+    phase("din_bst_path", **readings)
+
+
+def small_recsys_retrieval_batch(cfg, rng) -> dict:
+    c = 24
+    if cfg.kind == "dlrm":
+        rb = {t.name: rng.integers(0, t.vocab, (c, t.bag_size)
+                                   if t.bag_size > 1 else (c,))
+              .astype(np.int32) for t in cfg.tables}
+        rb["dense"] = rng.normal(size=(1, cfg.n_dense)).astype(np.float32)
+        return rb
+    if cfg.kind == "two_tower":
+        return dict(user_id=np.asarray([3], np.int32),
+                    user_hist=rng.integers(0, 1000, (1, cfg.tables[1]
+                                                     .bag_size))
+                    .astype(np.int32),
+                    cand_items=rng.integers(0, 1000, c).astype(np.int32),
+                    cand_cates=rng.integers(0, 50, c).astype(np.int32))
+    s = cfg.seq_len
+    return dict(user_id=np.asarray([3], np.int32),
+                context=np.asarray([1], np.int32),
+                hist_items=rng.integers(0, 1000, (1, s)).astype(np.int32),
+                hist_cates=rng.integers(0, 50, (1, s)).astype(np.int32),
+                cand_items=rng.integers(0, 1000, c).astype(np.int32),
+                cand_cates=rng.integers(0, 50, c).astype(np.int32))
+
+
+def recsys_small_reference(dev) -> None:
+    """Each recsys smoke config on the card and on the CPU from the same
+    seeded params and numpy batches: serve, retrieval and loss within rtol
+    1e-4 / atol 1e-5, and 5 steps of the smoke trainer: losses within
+    rtol 1e-4 / atol 1e-5, every param leaf within rtol 1e-3 / atol 1e-4
+    but the shift-free ones (ROADMAP C9), held within 2 * steps * lr."""
+    from repro_torch.configs import RECSYS_ARCHS, get_smoke
+    from repro_torch.launch.train import _smoke_recsys_batch, _train_recsys
+    from repro_torch.models.recsys import _RECSYS_MODS
+    from repro_torch.utils import tree
+    worst = {}
+    for arch in RECSYS_ARCHS:
+        cfg = get_smoke(arch)
+        mod = _RECSYS_MODS[cfg.kind]
+        params = mod.init(torch.Generator().manual_seed(SEED), cfg,
+                          "cpu")
+        rb = small_recsys_retrieval_batch(cfg, np.random.default_rng(SEED))
+        runs = {}
+        for device in ("cpu", dev):
+            p = tree.to_device(params, device)
+            b = _smoke_recsys_batch(cfg, np.random.default_rng(SEED), 16,
+                                    device)
+            r = {k: torch.from_numpy(v).to(device) for k, v in rb.items()}
+            with torch.no_grad():
+                serve = mod.serve(p, cfg, b)
+                retr = (mod.retrieval(p, cfg, r, top_k=8)
+                        if cfg.kind == "two_tower"
+                        else dict(scores=mod.retrieval(p, cfg, r)))
+            loss = mod.loss(p, cfg, b)[0]
+            p5, losses = _train_recsys(cfg, p, np.random.default_rng(SEED),
+                                       SMOKE_STEPS, 8, device)
+            runs[str(device)] = dict(
+                serve=serve.cpu(), loss=float(loss),
+                retr={k: v.cpu() for k, v in retr.items()},
+                params=tree.to_device(p5, "cpu"), losses=losses)
+        a, b = runs["cpu"], runs[str(dev)]
+        for name, x, y in (("serve", a["serve"], b["serve"]),
+                           ("retrieval", a["retr"]["scores"],
+                            b["retr"]["scores"]),
+                           ("loss", torch.tensor(a["loss"]),
+                            torch.tensor(b["loss"])),
+                           ("5-step losses", torch.tensor(a["losses"]),
+                            torch.tensor(b["losses"]))):
+            if not torch.allclose(y, x, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"small {arch}: {name} on the card "
+                                     f"differs from the CPU's")
+        if "top_idx" in a["retr"]:
+            s = a["retr"]["scores"]
+            ok, _, _ = near_tie_ok(lambda rows, ids: s[ids.long()],
+                                   b["retr"]["top_idx"][None],
+                                   a["retr"]["top_idx"][None])
+            if not ok:
+                raise AssertionError(f"small {arch}: top-k ids differ "
+                                     f"outside near-ties")
+        for (path, x), y in zip(tree.flatten_with_path(b["params"]),
+                                tree.leaves(a["params"])):
+            diff = float((x - y).abs().max())
+            worst[f"{arch}:{'/'.join(map(str, path))}"] = diff
+            if path in SHIFT_FREE.get(arch, ()):
+                if diff > 2 * SMOKE_STEPS * ADAM_LR:
+                    raise AssertionError(f"small {arch}: {path} moved {diff}")
+            elif not torch.allclose(x, y, rtol=1e-3, atol=1e-4):
+                raise AssertionError(f"small {arch}: {path} after "
+                                     f"{SMOKE_STEPS} steps differs from the "
+                                     f"CPU's by {diff}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    phase("recsys_small_reference", archs=",".join(RECSYS_ARCHS),
+          close="serve/retrieval/loss rtol=1e-4 atol=1e-5",
+          train_steps=SMOKE_STEPS, largest_leaf_diffs=top)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1462,7 +2008,8 @@ def main() -> int:
                check_vq_assign(ops, ref, cfg, dev, gen),
                *check_inbatch_softmax(ops, ref, cfg, dev, gen),
                check_ema_segment_sum(ops, ref, cfg, dev, gen),
-               check_topk_dot(ops, ref, cfg, dev, gen)]
+               check_topk_dot(ops, ref, cfg, dev, gen),
+               check_embedding_bag(ops, ref, dev, gen)]
     torch.cuda.empty_cache()
 
     main = main_path(retriever, astore, RetrievalService, cfg, dev)
@@ -1480,6 +2027,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     small_reference(retriever, astore, RetrievalService, smoke, dev)
     small_train_reference(smoke, dev)
+    recsys_launches = recsys_path(ops, ref, dev)
+    two_tower_path(ops, dev)
+    din_bst_path(ops, dev)
+    recsys_small_reference(dev)
 
     # launches on the path that runs each kernel: the unfused serve path,
     # the fused serve path, the train path; merge_serve_ds has no path
@@ -1490,7 +2041,9 @@ def main() -> int:
                "merge_serve_ds": ("none: no path of the port or of the "
                                   "reference runs it", None, 1),
                "topk_dot": ("probed serve batch", probe_launches,
-                            N_BATCHES)}
+                            N_BATCHES),
+               "embedding_bag": ("DLRM-RM2 forward", recsys_launches,
+                                 N_BATCHES)}
     for k in kernels:
         per, launches, units = path_of.get(
             k["name"], ("train step", train_launches, TRAIN_STEPS))

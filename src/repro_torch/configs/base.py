@@ -1,10 +1,42 @@
-"""Config dataclasses of the SVQ retriever (own copy of the JAX package's
-``configs/base.py`` ``EmbeddingSpec`` and ``SVQConfig``)."""
+"""Config dataclasses of the SVQ retriever and the recsys families (own
+copy of the JAX package's ``configs/base.py`` ``ShapeSpec``,
+``recsys_shapes``, ``EmbeddingSpec``, ``RecsysConfig`` and
+``SVQConfig``).
+
+Every architecture module exports ``CONFIG`` (the published config),
+``SHAPES`` (its input-shape set) and ``smoke()`` (a reduced config of the
+same family for CPU tests).
+"""
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell; recsys kinds: "train", "serve", "retrieval"."""
+
+    name: str
+    kind: str
+    dims: Dict[str, int] = field(default_factory=dict)
+
+    def __getitem__(self, key: str) -> int:
+        return self.dims[key]
+
+    def get(self, key: str, default: int = 0) -> int:
+        return self.dims.get(key, default)
+
+
+def recsys_shapes() -> List[ShapeSpec]:
+    return [
+        ShapeSpec("train_batch", "train", dict(batch=65536)),
+        ShapeSpec("serve_p99", "serve", dict(batch=512)),
+        ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+        ShapeSpec("retrieval_cand", "retrieval",
+                  dict(batch=1, n_candidates=1000000)),
+    ]
 
 
 @dataclass(frozen=True)
@@ -16,6 +48,47 @@ class EmbeddingSpec:
     # multiplicity of ids per sample for this field (1 = single-hot)
     bag_size: int = 1
     combiner: str = "sum"      # sum | mean
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    kind: str                                 # din | bst | dlrm | two_tower
+    embed_dim: int
+    tables: Tuple[EmbeddingSpec, ...] = ()
+    n_dense: int = 0
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    tower_mlp: Tuple[int, ...] = ()
+    attn_mlp: Tuple[int, ...] = ()
+    seq_len: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    interaction: str = "dot"
+    dtype: str = "float32"
+    # streaming-VQ integration (retrieval archs only)
+    vq_clusters: int = 0
+
+    def n_embedding_rows(self) -> int:
+        return sum(t.vocab for t in self.tables)
+
+    def n_params(self) -> int:
+        n = sum(t.vocab * t.dim for t in self.tables)
+
+        def mlp(dims, d_in):
+            tot, d = 0, d_in
+            for h in dims:
+                tot += d * h + h
+                d = h
+            return tot
+        if self.kind == "dlrm":
+            n += mlp(self.bot_mlp, self.n_dense)
+            n_f = len(self.tables) + 1
+            d_int = n_f * (n_f - 1) // 2 + self.bot_mlp[-1]
+            n += mlp(self.top_mlp, d_int)
+        elif self.kind == "two_tower":
+            n += 2 * mlp(self.tower_mlp, self.embed_dim * 4)
+        return n
 
 
 @dataclass(frozen=True)

@@ -65,6 +65,21 @@ def _inbatch_ce(u, item_emb, bias, log_q, valid, temperature,
     return _masked_mean(_ce_rows(u, item_emb, bias, lq), valid)
 
 
+def build_logits(u: torch.Tensor, item_emb: torch.Tensor,
+                 item_bias: torch.Tensor,
+                 log_q: Optional[torch.Tensor] = None,
+                 temperature: float = 1.0, dtype=None) -> torch.Tensor:
+    """The dense (B, B) in-batch logits u_o . item_r + bias_r - logQ_r
+    (Eq. 1/4 + Eq. 11), for metrics such as two-tower's in-batch
+    accuracy; the losses never build them."""
+    if dtype is not None or temperature != 1.0:
+        raise NotImplementedError(_DENSE)
+    logits = u @ item_emb.T + item_bias.to(u.dtype)[None, :]
+    if log_q is not None:
+        logits = logits - log_q.to(u.dtype)[None, :]
+    return logits
+
+
 def l_aux(u: torch.Tensor, v_emb: torch.Tensor, v_bias: torch.Tensor,
           log_q: Optional[torch.Tensor] = None,
           valid: Optional[torch.Tensor] = None,

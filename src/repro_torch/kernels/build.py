@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("cluster_rank", "merge_serve", "fused_gather_rank", "vq_assign",
-           "inbatch_softmax", "ema_segment_sum", "topk_dot")
+           "inbatch_softmax", "ema_segment_sum", "topk_dot", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -68,6 +68,11 @@ _SIGNATURES = {
     "topk_dot": {
         "topk_dot_launch": ([_P] * 5 + [_I, _L, _I, _I, _L, _I, _I, _P], _I),
         "topk_dot_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    },
+    "embedding_bag": {
+        "embedding_bag_launch": ([_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                  _P], _I),
+        "embedding_bag_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
 }
 

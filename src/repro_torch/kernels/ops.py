@@ -16,7 +16,8 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"cluster_rank": 0, "merge_serve": 0, "merge_serve_ds": 0,
             "fused_gather_rank": 0, "vq_assign": 0, "inbatch_softmax": 0,
-            "inbatch_softmax_bwd": 0, "ema_segment_sum": 0, "topk_dot": 0}
+            "inbatch_softmax_bwd": 0, "ema_segment_sum": 0, "topk_dot": 0,
+            "embedding_bag": 0}
 
 # dynamic shared memory a block may take on Hopper (sm_90), less each
 # kernel's static shared memory
@@ -25,7 +26,8 @@ _MAX_DYN_SMEM = {"cluster_rank": 232_448 - 4_096,
                  "merge_serve_ds": 232_448 - 16_384,
                  "fused_gather_rank": 232_448 - 16_384,
                  "vq_assign": 232_448, "inbatch_softmax": 232_448,
-                 "ema_segment_sum": 232_448, "topk_dot": 232_448}
+                 "ema_segment_sum": 232_448, "topk_dot": 232_448,
+                 "embedding_bag": 232_448}
 
 
 def reset_launches() -> None:
@@ -477,3 +479,92 @@ def topk_dot(u: torch.Tensor, items: torch.Tensor, bias: torch.Tensor,
     LAUNCHES["topk_dot"] += 1
     vals, idx = _merge_partials(part_val, part_key, k)
     return (vals[0], idx[0]) if one else (vals, idx)
+
+
+_EMBAG_TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_EMBAG_ID_DTYPES = {torch.int32: 0, torch.int64: 1}
+
+
+def _embedding_bag_kernel(table: torch.Tensor, ids: torch.Tensor,
+                          combiner: str) -> torch.Tensor:
+    """Launch ``csrc/embedding_bag.cu`` on CUDA tensors (the table is read
+    in place, fp32 or bf16)."""
+    if table.dtype not in _EMBAG_TABLE_DTYPES:
+        raise TypeError(f"table must be float32 or bfloat16, got "
+                        f"{table.dtype}")
+    if ids.dtype not in _EMBAG_ID_DTYPES:
+        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    for name, t in (("table", table), ("ids", ids)):
+        if t.dim() != 2:
+            raise ValueError(f"{name} must have 2 dims, got {t.dim()}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    v, d = table.shape
+    b, bag = ids.shape
+    if v < 1 or d < 1 or bag < 1:
+        raise ValueError(f"embedding_bag needs V, d, bag >= 1; got V={v}, "
+                         f"d={d}, bag={bag}")
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    if b == 0:
+        return out
+    # 4-element slots (16-byte fp32 / 8-byte bf16 loads) where d and the
+    # table's base allow them, else one element a load
+    vec = int(d % 4 == 0 and table.data_ptr() % (4 * table.element_size())
+              == 0)
+    lib = build.load("embedding_bag")
+    _check_smem("embedding_bag",
+                lib.embedding_bag_smem_bytes(d // 4 if vec else d, bag),
+                f"d={d}, bag={bag}")
+    with torch.cuda.device(table.device):
+        code = lib.embedding_bag_launch(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), b, v, bag, d,
+            _EMBAG_TABLE_DTYPES[table.dtype], _EMBAG_ID_DTYPES[ids.dtype],
+            int(combiner == "mean"), vec, _stream(table.device))
+    _raise_on_error(code, "embedding_bag")
+    LAUNCHES["embedding_bag"] += 1
+    return out
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """Forward: the kernel on a CUDA table, the plain version on a CPU one.
+    Backward (the reference's gradient is XLA's scatter-add, no kernel):
+    the cotangent of each row, divided by bag for the mean, added into a
+    zero (V, d) fp32 gradient at the row's ids with ``index_add_``.  On
+    the card ``index_add_`` adds with atomics, so where an id repeats its
+    gradient sums in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, ids, combiner):
+        ctx.save_for_backward(ids)
+        ctx.combiner = combiner
+        ctx.table_meta = (table.shape, table.dtype)
+        if _on_cpu(table, ids):
+            return ref.embedding_bag_ref(table, ids, combiner)
+        return _embedding_bag_kernel(table, ids, combiner)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        (ids,) = ctx.saved_tensors
+        shape, dtype = ctx.table_meta
+        bag = ids.shape[1]
+        g = g.to(torch.float32)
+        if ctx.combiner == "mean":
+            g = g / torch.tensor(float(bag), device=g.device)
+        grad = torch.zeros(shape, dtype=torch.float32, device=g.device)
+        grad.index_add_(0, ids.reshape(-1).long(),
+                        g.repeat_interleave(bag, dim=0))
+        return grad.to(dtype), None, None
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  combiner: str = "sum") -> torch.Tensor:
+    """table (V, d) fp32 or bf16, ids (B, bag) int32 or int64 pre-hashed
+    row indices in [0, V) -> (B, d) fp32 bag sums (``"sum"``) or sums
+    divided by bag (``"mean"``), differentiable in the table.  On the
+    card an id outside [0, V) makes its row NaN (the plain version
+    raises)."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner {combiner!r}")
+    return _EmbeddingBag.apply(table, ids, combiner)

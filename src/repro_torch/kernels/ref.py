@@ -179,3 +179,18 @@ def ema_segment_sum_sliced_ref(v: torch.Tensor, assignment: torch.Tensor,
         tw = tw + torch.zeros_like(tw).index_add_(0, a[rows][m], wv[rows][m])
         tc = tc + torch.zeros_like(tc).index_add_(0, a[rows][m], w[rows][m])
     return tw, tc
+
+
+def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
+                      combiner: str = "sum") -> torch.Tensor:
+    """table (V, d) fp32 or bf16, ids (B, bag) row indices in [0, V) ->
+    (B, d) fp32: the sum of each row's ``bag`` table rows, divided by
+    ``bag`` for ``combiner="mean"``.  The divisor is a tensor on the
+    table's device, so the card divides too (PyTorch multiplies by the
+    reciprocal of a host scalar), as the kernel does."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner {combiner!r}")
+    s = table.to(torch.float32)[ids.long()].sum(-2)
+    if combiner == "mean":
+        return s / torch.tensor(float(ids.shape[-1]), device=s.device)
+    return s

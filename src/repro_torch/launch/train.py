@@ -4,27 +4,32 @@
 streams with the reference's production loop: Adagrad on the embedding
 tables and AdamW on the dense nets, gradient clipping, the EMA codebook
 and the real-time assignment write-back in every step.
-``eval_svq_recall`` reads the trained state's Recall@K.  Both run on
-``cuda`` unless ``device="cpu"`` is passed.  ``train_svq_live`` (training
-into a live service through deltas) waits for ROADMAP.md item A8.
+``eval_svq_recall`` reads the trained state's Recall@K.
+``train_arch_smoke`` trains one recsys architecture's smoke config for a
+few steps.  All run on ``cuda`` unless ``device="cpu"`` is passed.
+``train_svq_live`` (training into a live service through deltas) waits
+for ROADMAP.md item A8.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.baselines.brute_force import recall_at_k
-from repro_torch.configs.base import SVQConfig
+from repro_torch.configs import get_smoke
+from repro_torch.configs.base import RecsysConfig, SVQConfig
 from repro_torch.core import assignment_store as astore
 from repro_torch.core import retriever
 from repro_torch.data.streaming import RecsysStream
+from repro_torch.models.recsys import _RECSYS_MODS
 from repro_torch.optim import adagrad, adamw, clip_by_global_norm, \
     multi_optimizer
 from repro_torch.train import LoopConfig, run_loop
+from repro_torch.utils import tree
 
 
 def _route(path) -> str:
@@ -113,3 +118,91 @@ def eval_svq_recall(cfg: SVQConfig, params, index_state,
     truth = stream.true_topk(users, k)
     return dict(recall=recall_at_k(got, truth),
                 served_valid=float(out["valid"].cpu().numpy().mean()))
+
+
+# ---------------------------------------------------------------------------
+# Per-arch smoke training (reduced configs)
+# ---------------------------------------------------------------------------
+
+def train_arch_smoke(arch: str, n_steps: int = 5, batch: int = 8,
+                     seed: int = 0, *, device=None) -> Dict[str, float]:
+    """Train one recsys architecture's smoke config for ``n_steps`` steps
+    of ``batch`` (the reference's optimizer: Adagrad on the tables, AdamW
+    elsewhere, gradients clipped to norm 10) -> first and last loss.
+    The init is drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``, the batches from ``np.random.default_rng(seed)`` as the
+    reference draws them.  LM and GNN archs raise naming their ROADMAP.md
+    items."""
+    cfg = get_smoke(arch)
+    if not isinstance(cfg, RecsysConfig):
+        raise ValueError(f"{arch}: train_arch_smoke trains the recsys "
+                         f"families; the SVQ retriever trains with "
+                         f"train_svq")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = _RECSYS_MODS[cfg.kind].init(gen, cfg, device)
+    _, losses = _train_recsys(cfg, params, np.random.default_rng(seed),
+                              n_steps, batch, device)
+    return dict(first_loss=losses[0], last_loss=losses[-1])
+
+
+def _train_recsys(cfg: RecsysConfig, params, rng: np.random.Generator,
+                  n_steps: int, batch: int, device
+                  ) -> Tuple[dict, List[float]]:
+    """The step loop of ``train_arch_smoke`` from the given params ->
+    (params, the loss of each step)."""
+    mod = _RECSYS_MODS[cfg.kind]
+    device = resolve_device(device)
+    opt = _svq_opt()             # the reference's recsys optimizer too
+    opt_state = opt.init(params)
+    losses = []
+    for step in range(n_steps):
+        b = _smoke_recsys_batch(cfg, rng, batch, device)
+        paths = tree.flatten_with_path(params)
+        leaves = [leaf.detach().requires_grad_(True) for _, leaf in paths]
+        with torch.enable_grad():
+            loss, _ = mod.loss(tree.unflatten(params, leaves), cfg, b)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree.unflatten(params, [
+            torch.zeros_like(leaf) if g is None else g
+            for leaf, g in zip(leaves, grads)])
+        grads, _ = clip_by_global_norm(grads, 10.0)
+        params, opt_state = opt.update(
+            grads, opt_state, params,
+            torch.tensor(step, dtype=torch.int32, device=device))
+        losses.append(float(loss.detach()))
+    return params, losses
+
+
+def _smoke_recsys_batch(cfg: RecsysConfig, rng: np.random.Generator,
+                        b: int, device) -> Dict[str, torch.Tensor]:
+    """A smoke batch of ``cfg``'s family, drawn from ``rng`` in the
+    reference's order, as tensors on ``device``."""
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    if cfg.kind in ("din", "bst"):
+        s = cfg.seq_len
+        return dict(
+            user_id=t(rng.integers(0, 500, b).astype(np.int32)),
+            context=t(rng.integers(0, 16, b).astype(np.int32)),
+            hist_items=t(rng.integers(0, 1000, (b, s)).astype(np.int32)),
+            hist_cates=t(rng.integers(0, 50, (b, s)).astype(np.int32)),
+            target_item=t(rng.integers(0, 1000, b).astype(np.int32)),
+            target_cate=t(rng.integers(0, 50, b).astype(np.int32)),
+            label=t((rng.random(b) > 0.5).astype(np.float32)))
+    if cfg.kind == "dlrm":
+        out = dict(dense=t(rng.normal(size=(b, cfg.n_dense))
+                           .astype(np.float32)),
+                   label=t((rng.random(b) > 0.5).astype(np.float32)))
+        for spec in cfg.tables:
+            shp = (b, spec.bag_size) if spec.bag_size > 1 else (b,)
+            out[spec.name] = t(rng.integers(0, spec.vocab, shp)
+                               .astype(np.int32))
+        return out
+    bag = next(s.bag_size for s in cfg.tables if s.name == "user_hist")
+    return dict(user_id=t(rng.integers(0, 500, b).astype(np.int32)),
+                user_hist=t(rng.integers(0, 1000, (b, bag))
+                            .astype(np.int32)),
+                item_id=t(rng.integers(0, 1000, b).astype(np.int32)),
+                item_cate=t(rng.integers(0, 50, b).astype(np.int32)))

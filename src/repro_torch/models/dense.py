@@ -5,6 +5,8 @@ from typing import Any, Dict, Sequence
 
 import torch
 
+from repro_torch.utils import tree
+
 Params = Dict[str, Any]
 
 
@@ -33,14 +35,42 @@ def init_mlp(gen: torch.Generator, d_in: int,
     return {"layers": layers}
 
 
-def mlp(p: Params, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
-    """ReLU between layers, none after the last unless ``final_act``."""
+def mlp(p: Params, x: torch.Tensor, act=torch.relu,
+        final_act: bool = False) -> torch.Tensor:
+    """``act`` between layers, none after the last unless ``final_act``."""
     n = len(p["layers"])
     for i, lp in enumerate(p["layers"]):
         x = linear(lp, x)
         if i < n - 1 or final_act:
-            x = torch.relu(x)
+            x = act(x)
     return x
+
+
+def init_layernorm(d: int, device=None) -> Params:
+    return {"g": torch.ones((d,), device=device),
+            "b": torch.zeros((d,), device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Over the last axis, with the biased variance (as ``jnp.var``)."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+
+
+def init_rmsnorm(d: int, device=None) -> Params:
+    return {"g": torch.ones((d,), device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * p["g"]
+
+
+def count_params(params: Any) -> int:
+    return sum(x.numel() for x in tree.leaves(params)
+               if isinstance(x, torch.Tensor))
 
 
 def stack(trees: Sequence[Any]) -> Any:

@@ -683,3 +683,183 @@ def test_mips_topk_on_card_launches_the_kernel(cuda, monkeypatch):
     monkeypatch.setattr(build, "load", fail)
     with pytest.raises(RuntimeError, match="cannot load"):
         brute_force.mips_topk(u, items, None, 30)
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag (the recsys families' bag lookup)
+# ---------------------------------------------------------------------------
+
+def _embag_case(g, v, d, b, bag, integer, dtype=torch.float32, id64=True,
+                scale=None):
+    """Integer-valued or N(0, scale^2) tables (the models' 1/sqrt(d) unless
+    ``scale`` is given) and ids that hit the first and last rows and
+    repeat an id inside a bag."""
+    if integer:
+        table = g.integers(-8, 9, size=(v, d)).astype(np.float32)
+    else:
+        table = (g.normal(size=(v, d))
+                 * (d ** -0.5 if scale is None else scale)).astype(np.float32)
+    ids = g.integers(0, v, size=(b, bag))
+    ids[0, :] = 0                          # the first row, repeated
+    ids[-1, 0] = v - 1                     # the last row
+    if bag > 1:
+        ids[1, 1] = ids[1, 0]              # a repeated id inside a bag
+    return (torch.from_numpy(table).to(dtype),
+            torch.from_numpy(ids.astype(np.int64 if id64 else np.int32)))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _order_bound(table, ids, combiner):
+    """Per element, what two fp32 sums of the same bag in different orders
+    may differ by: bag * eps * sum|x| (each order is within
+    (bag-1) * eps/2 * sum|x| of the exact sum); for the mean, that over
+    bag plus the quotient's own rounding."""
+    bag = ids.shape[-1]
+    eps = torch.finfo(torch.float32).eps
+    mag = table[ids.long()].float().abs().sum(-2)     # gathered, not V x d
+    if combiner == "mean":
+        return eps * mag + eps * ref.embedding_bag_ref(table, ids,
+                                                       "mean").abs()
+    return bag * eps * mag
+
+
+def _within_order_bound(got, table, ids, combiner):
+    err = (got - ref.embedding_bag_ref(table, ids, combiner)).abs()
+    assert bool((err <= _order_bound(table, ids, combiner)).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("v,d,b,bag", [
+    (1000, 64, 513, 20),     # DLRM's width and bag, B odd
+    (5000, 256, 64, 50),     # two-tower's width and bag
+    (300, 12, 37, 5),        # d = 12: 3 slots of 4
+    (300, 6, 9, 3),          # d % 4 != 0: one element a load
+    (200, 8, 5, 130),        # bag > 64: ids staged in chunks
+    (50, 4, 301, 1)])        # one slot a row, 64 rows a block
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("id64", [True, False])
+def test_embedding_bag_kernel_integer_tables_bitwise(cuda, v, d, b, bag,
+                                                     combiner, id64):
+    """Integer-valued tables: every sum is exact, so the kernel is bitwise
+    the plain version (the mean too: both divide by bag)."""
+    g = np.random.default_rng(v + d + bag)
+    table, ids = _embag_case(g, v, d, b, bag, True, id64=id64)
+    table, ids = table.to(cuda), ids.to(cuda)
+    before = ops.LAUNCHES["embedding_bag"]
+    got = ops.embedding_bag(table, ids, combiner)
+    want = ref.embedding_bag_ref(table, ids, combiner)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["embedding_bag"] == before + 1
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_kernel_random_and_bf16(cuda, combiner):
+    """Random fp32 tables at the models' N(0, 1/d) scale within rtol 1e-6
+    / atol 1e-6 of the plain version (sums in another order: the error
+    scales with the summed terms, not the result), bitwise across
+    launches; a bf16 table is read in place and equals the fp32 result on
+    the widened table."""
+    g = np.random.default_rng(3)
+    table, ids = _embag_case(g, 4000, 64, 777, 20, False)
+    table, ids = table.to(cuda), ids.to(cuda)
+    got = ops.embedding_bag(table, ids, combiner)
+    torch.testing.assert_close(got, ref.embedding_bag_ref(table, ids,
+                                                          combiner),
+                               rtol=1e-6, atol=1e-6)
+    _within_order_bound(got, table, ids, combiner)
+    assert torch.equal(_bits(got), _bits(ops.embedding_bag(table, ids,
+                                                           combiner)))
+    t16 = table.to(torch.bfloat16)
+    got16 = ops.embedding_bag(t16, ids, combiner)
+    assert torch.equal(_bits(got16),
+                       _bits(ops.embedding_bag(t16.float(), ids, combiner)))
+    torch.testing.assert_close(got16, ref.embedding_bag_ref(t16, ids,
+                                                            combiner),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_kernel_within_summation_order_bound(cuda, scale,
+                                                           combiner):
+    """Random fp32 tables at any scale: kernel and plain version sum each
+    bag in their own orders, so they agree within bag * eps * sum|x|
+    per element, a bound that scales with the summed terms."""
+    g = np.random.default_rng(4)
+    table, ids = _embag_case(g, 4000, 64, 777, 20, False, scale=scale)
+    table, ids = table.to(cuda), ids.to(cuda)
+    _within_order_bound(ops.embedding_bag(table, ids, combiner), table, ids,
+                        combiner)
+
+
+def test_embedding_bag_kernel_unaligned_table_and_bad_ids(cuda):
+    """A table view whose base is not 16-byte aligned takes the
+    one-element path with the same bits; an id outside [0, V) makes its
+    row NaN and no other; bad dtypes and shapes raise."""
+    g = np.random.default_rng(5)
+    table, ids = _embag_case(g, 100, 8, 20, 4, True)
+    buf = torch.zeros(100 * 8 + 1, device=cuda)
+    view = buf[1:].view(100, 8)
+    view.copy_(table.to(cuda))
+    ids = ids.to(cuda)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(_bits(ops.embedding_bag(view, ids)),
+                       _bits(ops.embedding_bag(table.to(cuda), ids)))
+    bad = ids.clone()
+    bad[3, 2] = 100
+    bad[7, 0] = -1
+    out = ops.embedding_bag(table.to(cuda), bad)
+    nan_rows = torch.isnan(out).all(dim=1)
+    assert nan_rows.tolist() == [i in (3, 7) for i in range(20)]
+    with pytest.raises(TypeError):
+        ops.embedding_bag(table.to(cuda).half(), ids)
+    with pytest.raises(TypeError):
+        ops.embedding_bag(table.to(cuda), ids.float())
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table.to(cuda), ids[:, 0])
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_autograd_through_the_kernel(cuda, combiner):
+    """The table's gradient through the kernel equals the plain version's
+    autograd gradient (index_add_ adds repeated ids with atomics, in no
+    fixed order, hence allclose); a table that needs no gradient gets
+    none."""
+    g = np.random.default_rng(9)
+    table, ids = _embag_case(g, 60, 16, 40, 7, False)
+    table, ids = table.to(cuda), ids.to(cuda)
+    w = torch.from_numpy(g.normal(size=(40, 16)).astype(np.float32)).to(cuda)
+    t1 = table.clone().requires_grad_(True)
+    (ops.embedding_bag(t1, ids, combiner) * w).sum().backward()
+    t2 = table.clone().requires_grad_(True)
+    (ref.embedding_bag_ref(t2, ids, combiner) * w).sum().backward()
+    assert t1.grad is not None
+    torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-5, atol=1e-6)
+    out = ops.embedding_bag(table, ids, combiner)
+    assert not out.requires_grad
+
+
+def test_recsys_smoke_models_launch_embedding_bag_on_card(cuda):
+    """DLRM's forward launches the kernel once per multi-hot table and
+    two-tower's encode_user once; both serve as on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import _smoke_recsys_batch
+    from repro_torch.models.recsys import _RECSYS_MODS
+    from repro_torch.utils import tree
+    for arch, want in (("dlrm-rm2", 2), ("two-tower-retrieval", 1)):
+        cfg = get_smoke(arch)
+        mod = _RECSYS_MODS[cfg.kind]
+        p = mod.init(torch.Generator().manual_seed(0), cfg, "cpu")
+        batch = _smoke_recsys_batch(cfg, np.random.default_rng(0), 16, "cpu")
+        cpu = mod.serve(p, cfg, batch)
+        before = ops.LAUNCHES["embedding_bag"]
+        got = mod.serve(tree.to_device(p, cuda), cfg,
+                        tree.to_device(batch, cuda))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["embedding_bag"] == before + want
+        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-6)
