@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve, train, quality and recsys paths on one
-CUDA card.
+"""Drive the PyTorch port's serve, train, quality, recsys and LM paths on
+one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the eight hand-written kernel sources from
+Builds the nine hand-written kernel sources from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at once) and
 holds each kernel to its plain PyTorch version at the shapes of the full
 ``SVQConfig()`` (K=16384 clusters, d=64; serve: C=128, L=256, chunk=8,
@@ -12,7 +12,10 @@ S=512, batches of 512 users over 2,097,152 items; train: batches of
 65536; the exact MIPS oracle ``topk_dot``: one query against 1,000,000
 candidates and 512 queries against the 2,097,152-slot store) and of the
 recsys families (``embedding_bag``: DLRM-RM2's 8,000,000 x 64 multi-hot
-tables at B=512 and 262,144, two-tower's 16,777,216 x 256 history table).
+tables at B=512 and 262,144, two-tower's 16,777,216 x 256 history table)
+and of the LM family (``flash_attention``: the reference's single-head
+cases, Qwen3-0.6B's 32,768-token layer in bf16 and fp32, SmolLM-360M's
+B=8 x 4,096 layer).
 Then it serves full-width batches through ``RetrievalService`` unfused,
 fused (``fused_gather_rank``) and on 4 logical shards (unfused and
 fused), each held to the unfused single-device service's outputs; serves
@@ -29,6 +32,13 @@ forward), two-tower at its published widths with its tables cut to
 16,777,216 rows (serve, and a top-50 retrieval over 1,000,000
 candidates), DIN and BST ``CONFIG`` (serve), and the four smoke configs
 on the card and on the CPU (serve, retrieval, loss, 5 train steps).  The
+LM phases run Qwen3-0.6B ``CONFIG`` in bf16: ``prefill`` at B=1 x 32,768
+and B=8 x 4,096 (one ``flash_attention`` launch a layer),
+``greedy_generate`` of 8 tokens from the 32,768-token prompt and the
+same decode at B=8 on a copy of its cache; in fp32 at S=4,096 the
+forward with the kernel against the same forward with the plain
+attention, and decode against forward; and the three dense smoke configs
+on the card and on the CPU (forward, tokens, 5 train steps).  The
 launch counters, set to 0 before each path and read after it, show that
 each path went through its kernels.  Prints one line per phase, then a
 JSON line of per-kernel numbers, the card's name and power limit, and
@@ -38,6 +48,7 @@ line, if there is no card or any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -55,6 +66,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # device memory rate and fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12  # dense bf16 tensor cores
+# exps a second: 16 MUFU.EX2 results a clock an SM (CUDA C++ programming
+# guide, throughput table, compute capability 9.0) x 132 SMs x 1,980 MHz
+EXP_PER_S = 16 * 132 * 1.98e9
 
 N_BATCHES = 4
 BATCH = 512          # users per serve batch: the serve_p99 shape
@@ -1974,6 +1989,469 @@ def recsys_small_reference(dev) -> None:
           train_steps=SMOKE_STEPS, largest_leaf_diffs=top)
 
 
+# ---------------------------------------------------------------------------
+# the dense LM family: flash_attention, Qwen3-0.6B prefill and decode
+# ---------------------------------------------------------------------------
+
+QWEN_S = 32_768              # prefill_32k's sequence (batch cut 32 -> 1)
+TRAIN_4K = (8, 4_096)        # a train_4k sequence run forward (batch 256 -> 8)
+GEN_STEPS = 8                # greedy tokens from the 32,768-token prompt
+DECODE_B = 8                 # decode_32k's batch, cut from 128
+VS_PLAIN_S = 4_096           # the fp32 full-width forward, kernel vs plain
+# (S, hd, causal) of the reference's single-head kernel tests
+FLASH_SINGLE = ((128, 64, True), (256, 32, False), (128, 128, True),
+                (64, 16, True), (48, 20, True))
+
+
+def attn_inputs(gen, dev, b, s, h, hk, hd, dtype):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, hd), (b, s, hk, hd), (b, s, hk, hd))]
+
+
+# kernel vs plain: fp32 the reference's sweep test; bf16: both compute in
+# fp32 from the same inputs and round once, so they differ by at most one
+# bf16 ulp (at most 2^-7 of the value) where the fp32 sums round apart
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+             torch.bfloat16: dict(rtol=8e-3, atol=1e-5)}
+
+
+def flash_vs_plain(ops, ref, q, k, v, causal, what) -> float:
+    """Kernel vs plain within ``FLASH_TOL`` -> max |error|."""
+    got = ops.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[q.dtype]
+    if got.dtype != q.dtype or not torch.allclose(got.float(), want.float(),
+                                                  **tol):
+        raise AssertionError(f"flash_attention {what}: differs from the "
+                             f"plain version beyond {tol}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def causal_pairs(s: int, t: int) -> int:
+    """(query, key) pairs a causal attention keeps: query i sees
+    min(t, i + t - s + 1) keys."""
+    return sum(min(t, i + t - s + 1) for i in range(s))
+
+
+def check_flash_attention(ops, ref, dev, gen) -> dict:
+    """Kernel vs plain at the reference's single-head cases, a ragged
+    S=4,100, Qwen3-0.6B's layer (B=1, S=32,768, H=16, Hk=8, hd=128) in
+    bf16 and fp32 and SmolLM-360M's (B=8, S=4,096, H=15, Hk=5, hd=64) in
+    bf16; times at Qwen3's layer in bf16."""
+    errs = {}
+    for s, hd, causal in FLASH_SINGLE:
+        for dtype in ((torch.float32, torch.bfloat16) if hd == 20
+                      else (torch.float32,)):
+            q, k, v = (x[0, :, 0] for x in attn_inputs(gen, dev, 1, s, 1, 1,
+                                                       hd, dtype))
+            name = f"S={s} hd={hd} causal={causal} {str(dtype)[6:]}"
+            errs[name] = flash_vs_plain(ops, ref, q, k, v, causal, name)
+    shapes = {"ragged S=4100 fp32": (1, 4_100, 16, 8, 128, torch.float32),
+              "qwen3 bf16": (1, QWEN_S, 16, 8, 128, torch.bfloat16),
+              "qwen3 fp32": (1, QWEN_S, 16, 8, 128, torch.float32),
+              "smollm B=8 bf16": (8, 4_096, 15, 5, 64, torch.bfloat16)}
+    for name, (b, s, h, hk, hd, dtype) in shapes.items():
+        q, k, v = attn_inputs(gen, dev, b, s, h, hk, hd, dtype)
+        errs[name] = flash_vs_plain(ops, ref, q, k, v, True, name)
+        del q, k, v
+        torch.cuda.empty_cache()
+    phase("flash_attention_check", max_abs_err=errs,
+          tol="fp32 rtol=1e-4 atol=1e-5, bf16 rtol=8e-3 atol=1e-5")
+
+    b, s, h, hk, hd = 1, QWEN_S, 16, 8, 128
+    q, k, v = attn_inputs(gen, dev, b, s, h, hk, hd, torch.bfloat16)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 3, warmup=1)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), 2,
+                       warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                  enable_gqa=True), 5)
+    # each kept (query, key) pair: 2 hd flop of q.k^T on bf16 inputs (the
+    # tensor cores' rate: an fp32 accumulate of bf16 products is exact),
+    # one exp, and 2 hd flop of P.V with P in fp32 (the fp32 pipes' rate);
+    # the pipes run side by side, so the bound is the slowest of them
+    pairs = h * b * causal_pairs(s, s)
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    parts = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "qk_bf16_tensor": 2 * hd * pairs / BF16_TC_FLOP_PER_S * 1e3,
+             "exp_mufu": pairs / EXP_PER_S * 1e3,
+             "pv_fp32": 2 * hd * pairs / FP32_FLOP_PER_S * 1e3}
+    part = max(parts, key=parts.get)
+    t_bound, by = parts[part], "bytes" if part == "bytes" else "operations"
+    phase("flash_attention_time", shape=(b, s, h, hk, hd), dtype="bf16",
+          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          library="F.scaled_dot_product_attention(is_causal, enable_gqa)",
+          bound_ms=t_bound, bound_by=by, bound_set_by=part,
+          bound_parts_ms=parts, n_exp=pairs,
+          share_of_bound=t_bound / ms,
+          both_products_fp32_ms=4 * hd * pairs / FP32_FLOP_PER_S * 1e3)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:63",
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=t_bound, bound_by=by, library_ms=lib_ms)
+
+
+def lm_tokens(rng, vocab, b, s) -> torch.Tensor:
+    from repro_torch.data.streaming import lm_batch
+    return torch.from_numpy(lm_batch(rng, b, s, vocab)["tokens"])
+
+
+def check_logits(logits, cfg, what) -> None:
+    """Finite, the vocab padding masked to -1e30."""
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: logits not finite")
+    if cfg.padded_vocab > cfg.vocab and not bool(
+            (logits[..., cfg.vocab:] <= -1e29).all()):
+        raise AssertionError(f"{what}: vocab padding not masked")
+
+
+def lm_prefill_path(ops, dev) -> dict:
+    """Qwen3-0.6B ``CONFIG`` (bf16, random weights from a seed): prefill
+    at B=1 x 32,768 (prefill_32k, batch cut from 32) and B=8 x 4,096 (a
+    train_4k sequence, forward only), a warm-up call and a timed one each.
+    Holds: 28 flash_attention launches a prefill, finite logits, the
+    padding masked.  -> the launch counts of the timed 32,768 prefill."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
+    from repro_torch.models.lm import transformer as tfm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, init_ms = timed_ms(lambda: tfm.init_lm(gen, cfg, dev))
+    rng = np.random.default_rng(SEED)
+    readings, launches = {}, None
+    with torch.no_grad():
+        for name, (b, s) in (("prefill_32k_b1", (1, QWEN_S)),
+                             ("train_4k_b8", TRAIN_4K)):
+            toks = lm_tokens(rng, cfg.vocab, b, s).to(dev)
+            tfm.prefill(params, cfg, toks)            # warm-up
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            (logits, cache), ms = timed_ms(lambda: tfm.prefill(params, cfg,
+                                                               toks))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            counts = dict(ops.LAUNCHES)
+            check_launches(counts, {"flash_attention": cfg.n_layers},
+                           f"a {name} prefill")
+            check_logits(logits, cfg, name)
+            if cache.k.shape != (cfg.n_layers, b, s, cfg.n_kv_heads,
+                                 cfg.resolved_head_dim) or cache.pos != s:
+                raise AssertionError(f"{name}: cache {tuple(cache.k.shape)}")
+            readings[name] = dict(ms=ms, tokens_per_s=b * s / ms * 1e3,
+                                  peak_gb=peak_gb)
+            launches = launches or counts
+            del logits, cache, toks
+            torch.cuda.empty_cache()
+    phase("lm_prefill", model="qwen3-0.6b CONFIG bf16",
+          params_b=cfg.n_params() / 1e9, init_ms=init_ms,
+          flash_attention_launches_per_prefill=cfg.n_layers, **readings)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at |x| > 0."""
+    return 2.0 ** (math.frexp(x)[1] - 8)
+
+
+def profile_decode(tfm, params, cfg, tok, cache) -> dict:
+    """One profiled ``decode_step``: wall ms, busy device ms, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed_ms(lambda: tfm.decode_step(params, cfg, tok, cache))
+    busy, top = device_breakdown(prof, n_top=5)
+    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                top_kernels_ms=top)
+
+
+def lm_generate_path(dev) -> None:
+    """``greedy_generate`` for 8 tokens from a 32,768-token prompt at B=1,
+    prefill and each decode step timed apart; then the prefill's cache
+    copied to B=8 (decode_32k's batch, cut from 128) and the same 7
+    decode steps run at B=8 on the batch-1 tokens.  Holds: the 8 rows
+    bitwise equal; each row's logits within 2e-2 of the largest |logit|
+    (the bf16 bound) of the batch-1 step's; each row's greedy token the
+    batch-1 token, or a flip between two tokens whose batch-1 logits are
+    equal or adjacent bf16 values (one ulp apart: the B=8 GEMMs sum in
+    another order than the B=1 ones, and one rounding decides such a
+    tie).  The exact token check at B=8 is made in fp32
+    (``lm_vs_plain_path``)."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
+    from repro_torch.models.lm import KVCache
+    from repro_torch.models.lm import transformer as tfm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tfm.init_lm(gen, cfg, dev)
+    prompt = lm_tokens(np.random.default_rng(SEED + 1), cfg.vocab, 1,
+                       QWEN_S).to(dev)
+    times = {"prefill": [], "decode_step": []}
+    kept = {"logits": []}
+    v = cfg.vocab
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            out, ms = timed_ms(lambda: fn(*args, **kw))
+            times[name].append(ms)
+            if name == "prefill":
+                kept["cache"] = out[1]
+            else:
+                kept["logits"].append(out[0][0, -1, :v].float())
+            return out
+        return run
+
+    with torch.no_grad():
+        with mock.patch.object(tfm, "prefill",
+                               timed("prefill", tfm.prefill)), \
+                mock.patch.object(tfm, "decode_step",
+                                  timed("decode_step", tfm.decode_step)):
+            toks = tfm.greedy_generate(params, cfg, prompt, GEN_STEPS)
+        if toks.shape != (1, GEN_STEPS) or not bool(
+                ((toks >= 0) & (toks < v)).all()):
+            raise AssertionError(f"greedy_generate gave {toks.tolist()}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c1 = kept.pop("cache")
+        prof_b1 = profile_decode(tfm, params, cfg, toks[:, :1],
+                                 tfm.grow_cache(c1, 1))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shape = list(c1.k.shape)
+        shape[1], shape[2] = DECODE_B, QWEN_S + GEN_STEPS
+        cache = KVCache(k=c1.k.new_zeros(shape), v=c1.v.new_zeros(shape),
+                        pos=c1.pos)
+        cache.k[:, :, :QWEN_S] = c1.k
+        cache.v[:, :, :QWEN_S] = c1.v
+        del c1
+        cache_gb = 2 * cache.k.numel() * cache.k.element_size() / 1e9
+        b8_ms, errs, flips = [], [], []
+        for i in range(GEN_STEPS - 1):
+            tok = toks[:, i:i + 1].expand(DECODE_B, 1).contiguous()
+            (logits, cache), ms = timed_ms(
+                lambda: tfm.decode_step(params, cfg, tok, cache))
+            b8_ms.append(ms)
+            check_logits(logits, cfg, "decode B=8")
+            rows = logits[:, -1, :v].float()
+            if not torch.equal(rows, rows[:1].expand_as(rows)):
+                raise AssertionError(f"decode B={DECODE_B}: rows differ")
+            one = kept["logits"][i]
+            err = float((rows[0] - one).abs().max())
+            errs.append(err)
+            if err > 2e-2 * float(one.abs().max()):
+                raise AssertionError(f"decode B={DECODE_B} step {i}: logits "
+                                     f"differ from batch 1's by {err}")
+            got, want = int(rows[0].argmax()), int(toks[0, i + 1])
+            if got != want:
+                gap = float(one[want] - one[got])
+                ulp = bf16_ulp(max(abs(float(one[want])),
+                                   abs(float(one[got]))))
+                if gap > ulp:
+                    raise AssertionError(
+                        f"decode B={DECODE_B} step {i}: token {got}, batch 1 "
+                        f"{want}, batch-1 logit gap {gap} > one bf16 ulp "
+                        f"{ulp}")
+                flips.append(dict(step=i, b8=got, b1=want, b1_gap=gap,
+                                  ulp=ulp))
+        # the cache's last free slot
+        prof_b8 = profile_decode(tfm, params, cfg, toks[:, -1:].expand(
+            DECODE_B, 1).contiguous(), cache)
+    phase("lm_generate", model="qwen3-0.6b CONFIG bf16", prompt=QWEN_S,
+          tokens=toks[0].tolist(), prefill_ms=times["prefill"],
+          decode_step_ms_b1=times["decode_step"],
+          decode_b8_cache_gb=cache_gb, decode_step_ms_b8=b8_ms,
+          decode_step_ms_b8_median=statistics.median(b8_ms),
+          b8_rows_equal=True, b8_vs_b1_logits_max_abs_err=errs,
+          b8_tokens_equal_b1=f"{GEN_STEPS - 1 - len(flips)} of "
+                             f"{GEN_STEPS - 1} steps",
+          b8_near_tie_flips=flips or "none",
+          peak_gb_b8=torch.cuda.max_memory_allocated() / 1e9)
+    phase("lm_decode_profile", b1=prof_b1, b8=prof_b8)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+
+def lm_vs_plain_path(ops, ref, dev) -> None:
+    """Qwen3-0.6B ``CONFIG`` in fp32 at B=1, S=4,096: the logits with the
+    kernel against the same forward with the plain flash_attention; then
+    prefill(S-4) and 4 decode steps against the forward's logits (the
+    reference's decode contract, tests/test_lm.py), and the same 4 steps
+    at B=8 on a copy of the prefill's cache: each row's logits within
+    2e-4 of the B=1 step's and its greedy token B=1's."""
+    import dataclasses
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.models.lm import KVCache
+    from repro_torch.models.lm import transformer as tfm
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    params = tfm.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         dev)
+    toks = lm_tokens(np.random.default_rng(SEED + 2), cfg.vocab, 1,
+                     VS_PLAIN_S).to(dev)
+    v = cfg.vocab
+    with torch.no_grad():
+        ops.reset_launches()
+        logits, _, _ = tfm.forward(params, cfg, toks)
+        if ops.LAUNCHES["flash_attention"] != cfg.n_layers:
+            raise AssertionError("fp32 forward: flash_attention launches")
+        with mock.patch.object(ops, "flash_attention",
+                               ref.flash_attention_ref):
+            plain, _, _ = tfm.forward(params, cfg, toks)
+        err = float((logits[..., :v] - plain[..., :v]).abs().max())
+        agree = float((logits[..., :v].argmax(-1)
+                       == plain[..., :v].argmax(-1)).float().mean())
+        if not torch.allclose(logits[..., :v], plain[..., :v], rtol=1e-4,
+                              atol=1e-4) or agree < 0.999:
+            raise AssertionError(f"fp32 forward with the kernel vs plain: "
+                                 f"max |diff| {err}, argmax agreement "
+                                 f"{agree}")
+        del plain
+        n = VS_PLAIN_S - 4
+        lp, cache = tfm.prefill(params, cfg, toks[:, :n])
+        errs = [float((lp[..., :v] - logits[:, :n, :v]).abs().max())]
+        del lp
+        cache = tfm.grow_cache(cache, 4)
+        cache8 = KVCache(k=cache.k.repeat(1, DECODE_B, 1, 1, 1),
+                         v=cache.v.repeat(1, DECODE_B, 1, 1, 1),
+                         pos=cache.pos)
+        b8_errs, b8_tokens = [], 0
+        for i in range(n, VS_PLAIN_S):
+            tok = toks[:, i:i + 1]
+            ld, cache = tfm.decode_step(params, cfg, tok, cache)
+            errs.append(float((ld[:, 0, :v] - logits[:, i, :v]).abs()
+                              .max()))
+            l8, cache8 = tfm.decode_step(
+                params, cfg, tok.expand(DECODE_B, 1).contiguous(), cache8)
+            b8_errs.append(float((l8[:, 0, :v] - ld[:, 0, :v]).abs().max()))
+            if not torch.equal(l8[:, 0, :v].argmax(-1),
+                               ld[:, 0, :v].argmax(-1).expand(DECODE_B)):
+                raise AssertionError(f"fp32 decode B={DECODE_B} step {i}: "
+                                     f"a greedy token differs from B=1's")
+            b8_tokens += DECODE_B
+        if max(errs) >= 2e-4:
+            raise AssertionError(f"decode vs forward at full width: {errs}")
+        if max(b8_errs) >= 2e-4:
+            raise AssertionError(f"fp32 decode B={DECODE_B} vs B=1: "
+                                 f"{b8_errs}")
+        del cache8, l8
+    phase("lm_full_width_vs_plain", model="qwen3-0.6b CONFIG fp32",
+          seq=VS_PLAIN_S, kernel_vs_plain_max_abs_err=err,
+          kernel_vs_plain_tol="rtol=1e-4 atol=1e-4", argmax_agreement=agree,
+          decode_vs_forward_max_abs_err=errs, decode_tol="< 2e-4",
+          decode_b8_vs_b1_max_abs_err=b8_errs,
+          decode_b8_tokens_equal_b1=f"{b8_tokens} of {b8_tokens}")
+    del params, logits, cache
+    torch.cuda.empty_cache()
+
+
+# Adam's eps: where an element's root-mean-square gradient is below 100
+# eps, its step g / (sqrt(v) + eps) follows the gradient's rounding noise
+# (ROADMAP.md C10)
+EPS_CONDITIONED = 100 * 1e-8
+
+
+def eps_conditioned_adamw(make, masks: dict):
+    """``make`` (the smoke trainer's ``adamw``) wrapped so that ``masks``
+    gathers, per leaf index, the elements whose bias-corrected second
+    moment was nonzero and below EPS_CONDITIONED**2 after some step."""
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.utils import tree
+
+    def recording(lr):
+        opt = make(lr)
+
+        def update(grads, state, params, step):
+            params, state = opt.update(grads, state, params, step)
+            bc2 = 1.0 - 0.999 ** (int(step) + 1)
+            for i, v in enumerate(tree.leaves(state["v"])):
+                v_hat = v / bc2
+                m = (v_hat > 0) & (v_hat < EPS_CONDITIONED ** 2)
+                masks[i] = masks[i] | m if i in masks else m
+            return params, state
+        return Optimizer(opt.init, update)
+    return recording
+
+
+def lm_small_reference(ops, dev) -> None:
+    """The dense LM smoke configs on the card against the CPU from the
+    same seeded params: forward with block_kv=8 (2 flash_attention
+    launches on the card) within rtol 1e-4 / atol 1e-5, greedy tokens
+    equal, and 5 smoke-trainer steps: losses within rtol 1e-4 / atol
+    1e-5, and every param element too but those whose Adam steps the
+    CPU run found conditioned by eps (ROADMAP C10; at most 1% of the
+    elements), which are held within 2 * steps * lr, as
+    tests/test_torch_lm.py holds the CPU run to the reference's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.lm import transformer as tfm
+    from repro_torch.utils import tree
+    off, worst, n_noisy, n_all = {}, {}, 0, 0
+    for arch in ("smollm-360m", "yi-9b", "qwen3-0.6b"):
+        cfg = get_smoke(arch)
+        params = tfm.init_lm(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        toks = lm_tokens(np.random.default_rng(SEED), cfg.vocab, 2, 24)
+        runs = {}
+        for device in ("cpu", dev):
+            p = tree.to_device(params, device)
+            t = toks.to(device)
+            ops.reset_launches()
+            with torch.no_grad():
+                logits, _, _ = tfm.forward(p, cfg, t, block_kv=8)
+                gen = tfm.greedy_generate(p, cfg, t, 5)
+            launches = ops.LAUNCHES["flash_attention"]
+            masks = {}
+            recording = eps_conditioned_adamw(train_mod.adamw, masks)
+            with mock.patch.object(train_mod, "adamw", recording):
+                p5, losses = train_mod._train_lm(
+                    cfg, p, np.random.default_rng(SEED), SMOKE_STEPS, 8,
+                    device)
+            runs[str(device)] = dict(logits=logits.cpu(), gen=gen.cpu(),
+                                     launches=launches, losses=losses,
+                                     params=tree.to_device(p5, "cpu"),
+                                     noisy=[masks[i].cpu()
+                                            for i in sorted(masks)])
+        a, b = runs["cpu"], runs[str(dev)]
+        if b["launches"] != cfg.n_layers or a["launches"] != 0:
+            raise AssertionError(f"small {arch}: flash_attention launched "
+                                 f"{b['launches']} times on the card")
+        if not torch.allclose(b["logits"], a["logits"], rtol=1e-4,
+                              atol=1e-5):
+            raise AssertionError(f"small {arch}: forward on the card differs")
+        if not torch.equal(b["gen"], a["gen"]):
+            raise AssertionError(f"small {arch}: greedy tokens differ")
+        if not np.allclose(b["losses"], a["losses"], rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"small {arch}: 5-step losses differ")
+        for (path, x), y, noisy in zip(tree.flatten_with_path(b["params"]),
+                                       tree.leaves(a["params"]), a["noisy"]):
+            diff = float((x - y).abs().max())
+            key = f"{arch}:{'/'.join(map(str, path))}"
+            worst[key] = diff
+            close = torch.isclose(x, y, rtol=1e-4, atol=1e-5)
+            if bool((~close & ~noisy).any()):
+                raise AssertionError(
+                    f"small {arch}: {path} after {SMOKE_STEPS} steps differs "
+                    f"from the CPU's by {diff} at elements whose Adam steps "
+                    f"eps does not condition")
+            if bool(noisy.any()) and float(
+                    (x - y)[noisy].abs().max()) > 2 * SMOKE_STEPS * ADAM_LR:
+                raise AssertionError(f"small {arch}: {path} moved {diff}")
+            if not bool(close.all()):
+                off[key] = (diff, int((~close).sum()))
+            n_noisy += int(noisy.sum())
+            n_all += noisy.numel()
+    if n_noisy > 0.01 * n_all:
+        raise AssertionError(f"{n_noisy} of {n_all} param elements have Adam "
+                             f"steps conditioned by eps")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    phase("lm_small_reference", archs="smollm-360m,yi-9b,qwen3-0.6b",
+          close="forward rtol=1e-4 atol=1e-5, tokens equal",
+          train_steps=SMOKE_STEPS,
+          eps_conditioned_elements=f"{n_noisy} of {n_all}",
+          leaves_off_tol=off or "none",
+          largest_leaf_diffs=top)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1986,6 +2464,7 @@ def main() -> int:
 
     card = gpu_name_and_power_limit()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase("device", name=torch.cuda.get_device_name(0),
@@ -2009,7 +2488,8 @@ def main() -> int:
                *check_inbatch_softmax(ops, ref, cfg, dev, gen),
                check_ema_segment_sum(ops, ref, cfg, dev, gen),
                check_topk_dot(ops, ref, cfg, dev, gen),
-               check_embedding_bag(ops, ref, dev, gen)]
+               check_embedding_bag(ops, ref, dev, gen),
+               check_flash_attention(ops, ref, dev, gen)]
     torch.cuda.empty_cache()
 
     main = main_path(retriever, astore, RetrievalService, cfg, dev)
@@ -2031,6 +2511,10 @@ def main() -> int:
     two_tower_path(ops, dev)
     din_bst_path(ops, dev)
     recsys_small_reference(dev)
+    lm_launches = lm_prefill_path(ops, dev)
+    lm_generate_path(dev)
+    lm_vs_plain_path(ops, ref, dev)
+    lm_small_reference(ops, dev)
 
     # launches on the path that runs each kernel: the unfused serve path,
     # the fused serve path, the train path; merge_serve_ds has no path
@@ -2043,7 +2527,9 @@ def main() -> int:
                "topk_dot": ("probed serve batch", probe_launches,
                             N_BATCHES),
                "embedding_bag": ("DLRM-RM2 forward", recsys_launches,
-                                 N_BATCHES)}
+                                 N_BATCHES),
+               "flash_attention": ("Qwen3-0.6B prefill of 32,768 tokens",
+                                   lm_launches, 1)}
     for k in kernels:
         per, launches, units = path_of.get(
             k["name"], ("train step", train_launches, TRAIN_STEPS))

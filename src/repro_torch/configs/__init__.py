@@ -1,15 +1,17 @@
 """Architecture config registry (the reference's arch ids).
 
 ``arch_module(arch_id)`` -> the module with CONFIG / SHAPES / smoke().
-The port holds the recsys families and the paper's own model; an LM or
-GNN arch id raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port holds the dense LM family, the recsys families and the paper's
+own model; a MoE LM or a GNN arch id raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import EmbeddingSpec, SVQConfig  # noqa: F401
+from repro_torch.configs.base import (EmbeddingSpec, LMConfig,  # noqa: F401
+                                     SVQConfig)
 
 LM_ARCHS = ["smollm-360m", "yi-9b", "qwen3-0.6b", "granite-moe-1b-a400m",
             "llama4-maverick-400b-a17b"]
@@ -17,6 +19,11 @@ GNN_ARCHS = ["mace"]
 RECSYS_ARCHS = ["din", "two-tower-retrieval", "bst", "dlrm-rm2"]
 
 _ARCH_MODULES: Dict[str, str] = {
+    # LM family (dense)
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    # recsys
     "din": "repro_torch.configs.din",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
     "bst": "repro_torch.configs.bst",
@@ -25,8 +32,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "svq": "repro_torch.configs.svq",
 }
 _NOT_PORTED = {
-    **{a: "the LM family is not ported yet: ROADMAP.md item A14"
-       for a in LM_ARCHS},
+    **{a: "the MoE FFN of the LM family is not ported yet: ROADMAP.md "
+          "item A21"
+       for a in ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")},
     **{a: "the GNN family is not ported yet: ROADMAP.md item A20"
        for a in GNN_ARCHS},
 }

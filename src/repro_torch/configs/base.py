@@ -1,7 +1,7 @@
-"""Config dataclasses of the SVQ retriever and the recsys families (own
-copy of the JAX package's ``configs/base.py`` ``ShapeSpec``,
-``recsys_shapes``, ``EmbeddingSpec``, ``RecsysConfig`` and
-``SVQConfig``).
+"""Config dataclasses of the SVQ retriever, the recsys families and the
+LM family (own copy of the JAX package's ``configs/base.py``
+``ShapeSpec``, ``lm_shapes``, ``recsys_shapes``, ``MoEConfig``,
+``LMConfig``, ``EmbeddingSpec``, ``RecsysConfig`` and ``SVQConfig``).
 
 Every architecture module exports ``CONFIG`` (the published config),
 ``SHAPES`` (its input-shape set) and ``smoke()`` (a reduced config of the
@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell; recsys kinds: "train", "serve", "retrieval"."""
+    """One input-shape cell.  LM kinds: "train", "prefill", "decode" (one
+    new token against a KV cache of seq_len); recsys kinds: "train",
+    "serve", "retrieval"."""
 
     name: str
     kind: str
@@ -29,6 +31,18 @@ class ShapeSpec:
         return self.dims.get(key, default)
 
 
+def lm_shapes() -> List[ShapeSpec]:
+    return [
+        ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+        ShapeSpec("prefill_32k", "prefill",
+                  dict(seq_len=32768, global_batch=32)),
+        ShapeSpec("decode_32k", "decode",
+                  dict(seq_len=32768, global_batch=128)),
+        # one token against a 524,288-entry KV cache
+        ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+    ]
+
+
 def recsys_shapes() -> List[ShapeSpec]:
     return [
         ShapeSpec("train_batch", "train", dict(batch=65536)),
@@ -37,6 +51,84 @@ def recsys_shapes() -> List[ShapeSpec]:
         ShapeSpec("retrieval_cand", "retrieval",
                   dict(batch=1, n_candidates=1000000)),
     ]
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    # capacity factor for dispatch (tokens per expert = cf * tokens * top_k / E)
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """A decoder-only LM.  The port runs every field's function; the
+    reference's mesh and compile knobs (``remat``, ``scan_layers``,
+    ``attn_unroll``, ``seq_shard``, ``force_fsdp``, ``moe_impl``,
+    ``microbatch``) are kept as data, since none changes what the model
+    computes."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0          # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    moe: Optional[MoEConfig] = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    remat: str = "dots"
+    scan_layers: bool = True
+    attn_unroll: int = 1
+    seq_shard: bool = True
+    force_fsdp: int = -1
+    block_kv: int = 1024          # flash-attention route above this length
+    moe_impl: str = "shard_map"
+    microbatch: int = 1
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (the reference's layout)."""
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def _attn_params(self) -> int:
+        hd = self.resolved_head_dim
+        return (self.d_model * self.n_heads * hd           # q
+                + 2 * self.d_model * self.n_kv_heads * hd  # k, v
+                + self.n_heads * hd * self.d_model)        # o
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head)."""
+        if self.moe is None:
+            ffn = 3 * self.d_model * self.d_ff
+        else:
+            ffn = self.moe.n_experts * 3 * self.d_model * self.d_ff \
+                + self.d_model * self.moe.n_experts        # router
+        block = self._attn_params() + ffn + 2 * self.d_model
+        return (self.vocab * self.d_model + self.n_layers * block
+                + self.d_model + self.vocab * self.d_model)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.n_params()
+        ffn_active = self.moe.top_k * 3 * self.d_model * self.d_ff \
+            + self.d_model * self.moe.n_experts
+        block = self._attn_params() + ffn_active + 2 * self.d_model
+        return (self.vocab * self.d_model + self.n_layers * block
+                + self.d_model + self.vocab * self.d_model)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Synthetic streaming recsys data with ground-truth affinity + drift
-(own numpy copy of the JAX package's ``data/streaming.py`` recsys stream;
-the same seed gives the same batches, bit for bit).
+and the LM token stream (own numpy copy of the JAX package's
+``data/streaming.py`` recsys stream and ``lm_batch``; the same seed gives
+the same batches, bit for bit).
 
 A latent topic model gives every experiment a measurable ground truth:
 
@@ -142,3 +143,17 @@ class RecsysStream:
         ids = (np.arange(batch) + start) % self.cfg.n_items
         return dict(item_id=ids.astype(np.int32),
                     item_cate=self.item_cate[ids])
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+def lm_batch(rng: np.random.Generator, batch: int, seq: int,
+             vocab: int, zipf_a: float = 1.2) -> Dict[str, np.ndarray]:
+    """Zipf-distributed synthetic token stream -> {tokens, labels}."""
+    ranks = np.arange(1, vocab + 1)
+    p = ranks ** (-zipf_a)
+    p /= p.sum()
+    toks = rng.choice(vocab, size=(batch, seq + 1), p=p).astype(np.int32)
+    return dict(tokens=toks[:, :-1], labels=toks[:, 1:])

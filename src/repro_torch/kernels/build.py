@@ -21,13 +21,15 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("cluster_rank", "merge_serve", "fused_gather_rank", "vq_assign",
-           "inbatch_softmax", "ema_segment_sum", "topk_dot", "embedding_bag")
+           "inbatch_softmax", "ema_segment_sum", "topk_dot", "embedding_bag",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the launch functions: (argtypes, restype)
 _SIGNATURES = {
     "cluster_rank": {
@@ -73,6 +75,11 @@ _SIGNATURES = {
         "embedding_bag_launch": ([_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
                                   _P], _I),
         "embedding_bag_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
+        "flash_attention_smem_bytes": ([_I], ctypes.c_size_t),
+        "flash_attention_max_hd": ([], _I),
     },
 }
 

@@ -17,7 +17,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"cluster_rank": 0, "merge_serve": 0, "merge_serve_ds": 0,
             "fused_gather_rank": 0, "vq_assign": 0, "inbatch_softmax": 0,
             "inbatch_softmax_bwd": 0, "ema_segment_sum": 0, "topk_dot": 0,
-            "embedding_bag": 0}
+            "embedding_bag": 0, "flash_attention": 0}
 
 # dynamic shared memory a block may take on Hopper (sm_90), less each
 # kernel's static shared memory
@@ -27,7 +27,7 @@ _MAX_DYN_SMEM = {"cluster_rank": 232_448 - 4_096,
                  "fused_gather_rank": 232_448 - 16_384,
                  "vq_assign": 232_448, "inbatch_softmax": 232_448,
                  "ema_segment_sum": 232_448, "topk_dot": 232_448,
-                 "embedding_bag": 232_448}
+                 "embedding_bag": 232_448, "flash_attention": 232_448}
 
 
 def reset_launches() -> None:
@@ -568,3 +568,58 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     if combiner not in ("sum", "mean"):
         raise ValueError(f"combiner {combiner!r}")
     return _EmbeddingBag.apply(table, ids, combiner)
+
+
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention with the online softmax, the TPU kernel's function:
+    logits (q . k^T) * hd^-0.5 in fp32, masked to -1e30 above the causal
+    diagonal (key j > query i + T - S), softmax, times v, in q's dtype.
+    q (B, S, H, hd), k and v (B, T, Hk, hd) with H % Hk == 0 (query head
+    h reads kv head h // (H // Hk)); or q, k, v (S, hd), one head, as the
+    reference's ``ops.flash_attention``.  fp32 or bf16, contiguous, read
+    in place; 1 <= hd <= 256, any S, T >= 1 (T >= S when causal).  No
+    gradient: on the card an input that requires one raises."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel yet: ROADMAP.md item "
+            "A22 (LM training at full width)")
+    if q.dim() == 2:
+        return flash_attention(q[None, :, None], k[None, :, None],
+                               v[None, :, None], causal)[0, :, 0]
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, q.dtype, 4)
+    b, s, h, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    if k.shape != (b, t, hk, hd) or v.shape != k.shape:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    lib = build.load("flash_attention")
+    if (s < 1 or t < 1 or hk < 1 or h % hk != 0
+            or not 1 <= hd <= lib.flash_attention_max_hd()
+            or (causal and t < s) or b * h > 65_535):
+        raise ValueError(f"flash_attention takes S, T >= 1, H % Hk == 0, "
+                         f"1 <= hd <= {lib.flash_attention_max_hd()}, "
+                         f"B * H <= 65,535 and T >= S when causal; got "
+                         f"B={b}, S={s}, T={t}, H={h}, Hk={hk}, hd={hd}, "
+                         f"causal={causal}")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    _check_smem("flash_attention", lib.flash_attention_smem_bytes(hd),
+                f"hd={hd}")
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
+            h, hk, hd, int(causal), hd ** -0.5, _FLASH_DTYPES[q.dtype],
+            _stream(q.device))
+    _raise_on_error(code, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

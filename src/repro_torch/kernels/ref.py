@@ -194,3 +194,44 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     if combiner == "mean":
         return s / torch.tensor(float(ids.shape[-1]), device=s.device)
     return s
+
+
+# a chunk of query rows of the plain attention keeps its fp32 logits under
+# this many elements (each row's softmax is its own, so chunks change no
+# arithmetic)
+_ATTN_CHUNK_ELEMS = 2 ** 28
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain attention in fp32: logits ``(q . k^T) * hd^-0.5`` (the scale
+    after the product, as the TPU kernel applies it), masked to -1e30
+    where key j lies above query i's diagonal (j > i + T - S), softmax,
+    times v, cast to q's dtype.  q, k, v (S, hd): one head, as the
+    reference's ``flash_attention_ref``; or q (B, S, H, hd) with k, v
+    (B, T, Hk, hd), query head h reading kv head h // (H // Hk)."""
+    if q.dim() == 2:
+        return flash_attention_ref(q[None, :, None], k[None, :, None],
+                                   v[None, :, None], causal)[0, :, 0]
+    b, s, h, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = hd ** -0.5
+    q32 = q.to(torch.float32).reshape(b, s, hk, rep, hd).permute(0, 2, 3, 1, 4)
+    k32 = k.to(torch.float32).permute(0, 2, 3, 1)            # (B, Hk, hd, T)
+    v32 = v.to(torch.float32).permute(0, 2, 1, 3)            # (B, Hk, T, hd)
+    out = torch.empty((b, hk, rep, s, hd), dtype=torch.float32,
+                      device=q.device)
+    kpos = torch.arange(t, device=q.device)
+    rows = max(1, _ATTN_CHUNK_ELEMS // max(1, b * h * t))
+    for i0 in range(0, s, rows):
+        i1 = min(s, i0 + rows)
+        qc = q32[:, :, :, i0:i1].reshape(b, hk, rep * (i1 - i0), hd)
+        logits = ((qc @ k32) * scale).reshape(b, hk, rep, i1 - i0, t)
+        if causal:
+            qpos = torch.arange(i0, i1, device=q.device) + (t - s)
+            logits = logits.masked_fill(kpos[None, :] > qpos[:, None],
+                                        -1e30)
+        w = torch.softmax(logits, dim=-1).reshape(b, hk, rep * (i1 - i0), t)
+        out[:, :, :, i0:i1] = (w @ v32).reshape(b, hk, rep, i1 - i0, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)

@@ -5,8 +5,9 @@ streams with the reference's production loop: Adagrad on the embedding
 tables and AdamW on the dense nets, gradient clipping, the EMA codebook
 and the real-time assignment write-back in every step.
 ``eval_svq_recall`` reads the trained state's Recall@K.
-``train_arch_smoke`` trains one recsys architecture's smoke config for a
-few steps.  All run on ``cuda`` unless ``device="cpu"`` is passed.
+``train_arch_smoke`` trains one recsys or dense LM architecture's smoke
+config for a few steps.  All run on ``cuda`` unless ``device="cpu"`` is
+passed.
 ``train_svq_live`` (training into a live service through deltas) waits
 for ROADMAP.md item A8.
 """
@@ -21,10 +22,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.baselines.brute_force import recall_at_k
 from repro_torch.configs import get_smoke
-from repro_torch.configs.base import RecsysConfig, SVQConfig
+from repro_torch.configs.base import LMConfig, RecsysConfig, SVQConfig
 from repro_torch.core import assignment_store as astore
 from repro_torch.core import retriever
-from repro_torch.data.streaming import RecsysStream
+from repro_torch.data.streaming import RecsysStream, lm_batch
+from repro_torch.models.lm import transformer as tfm
 from repro_torch.models.recsys import _RECSYS_MODS
 from repro_torch.optim import adagrad, adamw, clip_by_global_norm, \
     multi_optimizer
@@ -126,24 +128,58 @@ def eval_svq_recall(cfg: SVQConfig, params, index_state,
 
 def train_arch_smoke(arch: str, n_steps: int = 5, batch: int = 8,
                      seed: int = 0, *, device=None) -> Dict[str, float]:
-    """Train one recsys architecture's smoke config for ``n_steps`` steps
-    of ``batch`` (the reference's optimizer: Adagrad on the tables, AdamW
-    elsewhere, gradients clipped to norm 10) -> first and last loss.
-    The init is drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device``, the batches from ``np.random.default_rng(seed)`` as the
-    reference draws them.  LM and GNN archs raise naming their ROADMAP.md
-    items."""
+    """Train one architecture's smoke config for ``n_steps`` steps of
+    ``batch`` with the reference's optimizer -> first and last loss.
+    Recsys: Adagrad on the tables, AdamW elsewhere, gradients clipped to
+    norm 10.  Dense LM: AdamW 1e-3, clipped to norm 1, on ``lm_batch``
+    sequences of 32 tokens.  The init is drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device``, the batches from
+    ``np.random.default_rng(seed)`` as the reference draws them.  MoE LM
+    and GNN archs raise naming their ROADMAP.md items."""
     cfg = get_smoke(arch)
-    if not isinstance(cfg, RecsysConfig):
-        raise ValueError(f"{arch}: train_arch_smoke trains the recsys "
-                         f"families; the SVQ retriever trains with "
+    if not isinstance(cfg, (RecsysConfig, LMConfig)):
+        raise ValueError(f"{arch}: train_arch_smoke trains the recsys and "
+                         f"LM families; the SVQ retriever trains with "
                          f"train_svq")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = _RECSYS_MODS[cfg.kind].init(gen, cfg, device)
-    _, losses = _train_recsys(cfg, params, np.random.default_rng(seed),
-                              n_steps, batch, device)
+    rng = np.random.default_rng(seed)
+    if isinstance(cfg, LMConfig):
+        params = tfm.init_lm(gen, cfg, device)
+        _, losses = _train_lm(cfg, params, rng, n_steps, batch, device)
+    else:
+        params = _RECSYS_MODS[cfg.kind].init(gen, cfg, device)
+        _, losses = _train_recsys(cfg, params, rng, n_steps, batch, device)
     return dict(first_loss=losses[0], last_loss=losses[-1])
+
+
+LM_SMOKE_SEQ = 32          # train_arch_smoke's LM sequence length
+
+
+def _train_lm(cfg: LMConfig, params, rng: np.random.Generator, n_steps: int,
+              batch: int, device) -> Tuple[dict, List[float]]:
+    """The LM step loop of ``train_arch_smoke`` from the given params:
+    AdamW 1e-3, gradients clipped to norm 1 -> (params, the loss of each
+    step)."""
+    device = resolve_device(device)
+    opt = adamw(1e-3)
+    opt_state = opt.init(params)
+    losses = []
+    for step in range(n_steps):
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in lm_batch(rng, batch, LM_SMOKE_SEQ, cfg.vocab).items()}
+        leaves = [leaf.detach().requires_grad_(True)
+                  for leaf in tree.leaves(params)]
+        with torch.enable_grad():
+            loss, _ = tfm.lm_loss(tree.unflatten(params, leaves), cfg, b)
+            grads = torch.autograd.grad(loss, leaves)
+        grads, _ = clip_by_global_norm(tree.unflatten(params, list(grads)),
+                                       1.0)
+        params, opt_state = opt.update(
+            grads, opt_state, params,
+            torch.tensor(step, dtype=torch.int32, device=device))
+        losses.append(float(loss.detach()))
+    return params, losses
 
 
 def _train_recsys(cfg: RecsysConfig, params, rng: np.random.Generator,

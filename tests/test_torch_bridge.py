@@ -92,6 +92,48 @@ def test_bridge_serving_index_roundtrip_bitwise(reference_init):
         assert_bitwise(getattr(idx, f), back[f], f)
 
 
+def test_bridge_bf16_roundtrip_bitwise():
+    """Every class of bf16 bit pattern crosses bit for bit both ways: NaNs
+    (quiet and signalling, both signs), +-inf, +-0, subnormals, the
+    largest and smallest normals, and random values."""
+    bits = np.array([0x7FC0, 0xFFC0, 0x7F81, 0xFF81, 0x7F80, 0xFF80, 0x0000,
+                     0x8000, 0x0001, 0x8001, 0x007F, 0x807F, 0x0080, 0x8080,
+                     0x7F7F, 0xFF7F, 0x3F80, 0xBF80], np.uint16)
+    rand = np.random.default_rng(0).integers(0, 2 ** 16, 1000,
+                                             dtype=np.uint16)
+    a = jax.device_get(jax.lax.bitcast_convert_type(
+        jnp.asarray(np.concatenate([bits, rand])), jnp.bfloat16))
+    t = bridge.tensor(a)
+    assert t.dtype == torch.bfloat16 and t.shape == a.shape
+    np.testing.assert_array_equal(t.view(torch.uint16).numpy(),
+                                  a.view(np.uint16))
+    for back in (bridge.to_numpy(t),
+                 bridge.to_numpy(bridge.params_to_torch({"x": a}))["x"]):
+        assert back.dtype == a.dtype and back.shape == a.shape
+        np.testing.assert_array_equal(back.view(np.uint16),
+                                      a.view(np.uint16))
+
+
+def test_bridge_bf16_lm_params_bitwise():
+    """The stacked params of a bf16 LM smoke config, bitwise after the
+    bridge and back."""
+    import dataclasses
+    from repro.models.lm import transformer as j_tfm
+    cfg = dataclasses.replace(get_smoke("qwen3-0.6b"), dtype="bfloat16")
+    params = jax.device_get(j_tfm.init_lm(jax.random.PRNGKey(0), cfg))
+    tp = bridge.params_to_torch(params)
+    assert tp["layers"]["wq"].dtype == torch.bfloat16
+    assert tp["layers"]["wq"].shape == (cfg.n_layers, cfg.d_model,
+                                        cfg.n_heads * cfg.resolved_head_dim)
+    back = bridge.to_numpy(tp)
+    ref_leaves, got_leaves = list(_leaves(params)), list(_leaves(back))
+    assert [p for p, _ in ref_leaves] == [p for p, _ in got_leaves]
+    for (path, a), (_, b) in zip(ref_leaves, got_leaves):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(b.view(np.uint16), a.view(np.uint16),
+                                      err_msg=path)
+
+
 # ---------------------------------------------------------------------------
 # hashing
 # ---------------------------------------------------------------------------

@@ -863,3 +863,119 @@ def test_recsys_smoke_models_launch_embedding_bag_on_card(cuda):
         torch.cuda.synchronize()
         assert ops.LAUNCHES["embedding_bag"] == before + want
         torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (the LM family's attention, ROADMAP B11)
+# ---------------------------------------------------------------------------
+
+def _attn_case(g, b, s, t, h, hk, hd, dtype, cuda):
+    q, k, v = (torch.from_numpy(g.normal(size=shape).astype(np.float32))
+               .to(cuda).to(dtype)
+               for shape in ((b, s, h, hd), (b, t, hk, hd), (b, t, hk, hd)))
+    return q, k, v
+
+
+def _attn_tol(dtype):
+    # fp32: the reference's own sweep (tests/test_kernels.py); bf16: kernel
+    # and plain version both compute in fp32 and round once, so they differ
+    # by at most one bf16 ulp (at most 2^-7 of the value)
+    return (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=8e-3, atol=1e-5))
+
+
+@pytest.mark.parametrize("s,hd,causal,dtype", [
+    (128, 64, True, torch.float32), (256, 32, False, torch.float32),
+    (128, 128, True, torch.float32), (64, 16, True, torch.float32),
+    (48, 20, True, torch.float32), (48, 20, True, torch.bfloat16)])
+def test_flash_attention_kernel_single_head_matches_plain(cuda, s, hd, causal,
+                                                          dtype):
+    """The reference's single-head (S, hd) cases, kernel vs plain."""
+    q, k, v = (x[0, :, 0] for x in _attn_case(np.random.default_rng(s + hd),
+                                              1, s, s, 1, 1, hd, dtype, cuda))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (s, hd) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("b,s,t,h,hk,hd,causal", [
+    (2, 100, 100, 6, 2, 64, True),       # GQA 3:1, ragged S
+    (1, 4100, 4100, 2, 1, 128, True),    # ragged past many tiles
+    (3, 37, 70, 4, 4, 32, True),         # T > S: causal offset T - S
+    (2, 70, 37, 4, 2, 8, False),         # T < S, no mask
+    (1, 65, 65, 2, 2, 256, True),        # the largest head dim
+    (2, 130, 130, 4, 2, 48, True),       # hd below 16 * NC: the v tile's
+    (1, 200, 200, 3, 1, 96, True),       # zeroed columns are read to the
+    (1, 129, 129, 2, 1, 160, True),      # tile's last key
+    (1, 1, 1, 1, 1, 1, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_gqa_ragged_matches_plain(cuda, b, s, t, h, hk,
+                                                         hd, causal, dtype):
+    q, k, v = _attn_case(np.random.default_rng(s * t + hd), b, s, t, h, hk,
+                         hd, dtype, cuda)
+    got = ops.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    again = ops.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_flash_attention_rejects_grad_and_bad_inputs_on_card(cuda):
+    """A grad-requiring input raises naming A22 (no backward kernel yet)
+    and never falls back; under no_grad it launches."""
+    q, k, v = _attn_case(np.random.default_rng(0), 1, 16, 16, 2, 1, 8,
+                         torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="A22"):
+        ops.flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    q = q.detach()
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[:, :8].contiguous(), k[:, :4].contiguous(),
+                            v[:, :4].contiguous())          # T < S, causal
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[..., :4].contiguous(), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.zeros((1, 4, 1, 300), device=cuda),
+                            torch.zeros((1, 4, 1, 300), device=cuda),
+                            torch.zeros((1, 4, 1, 300), device=cuda))
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k, v)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "yi-9b", "qwen3-0.6b"])
+def test_lm_smoke_forward_on_card_launches_flash_attention(cuda, arch):
+    """The dense LM smoke configs on the card against the CPU: block_kv=8
+    sends each of the 2 layers to the kernel; greedy tokens are equal;
+    a forward that needs gradients on the flash route raises naming A22
+    instead of falling back."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.lm import transformer as tfm
+    from repro_torch.utils import tree
+    cfg = get_smoke(arch)
+    p = tfm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    cpu, _, _ = tfm.forward(p, cfg, toks, block_kv=8)
+    pc, tc = tree.to_device(p, cuda), toks.to(cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got, _, _ = tfm.forward(pc, cfg, tc, block_kv=8)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-5)
+    assert torch.equal(tfm.greedy_generate(pc, cfg, tc, 4).cpu(),
+                       tfm.greedy_generate(p, cfg, toks, 4))
+    leaves = [x.requires_grad_(True) for x in tree.leaves(pc)]
+    with pytest.raises(NotImplementedError, match="A22"):
+        tfm.lm_loss(tree.unflatten(pc, leaves), cfg,
+                    dict(tokens=tc, labels=tc), block_kv=8)

@@ -201,7 +201,8 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch(rng):
     assert t_ops.LAUNCHES == {name: 0 for name in (
         "cluster_rank", "merge_serve", "merge_serve_ds", "fused_gather_rank",
         "vq_assign", "inbatch_softmax", "inbatch_softmax_bwd",
-        "ema_segment_sum", "topk_dot", "embedding_bag")}
+        "ema_segment_sum", "topk_dot", "embedding_bag",
+        "flash_attention")}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -268,7 +268,7 @@ def test_registry_matches_reference():
         assert getattr(t_configs, name) == getattr(j_configs, name)
     for arch in j_configs.ALL_ARCHS:
         assert t_configs.family(arch) == j_configs.family(arch)
-    for arch in ARCHS:
+    for arch in ARCHS + ["smollm-360m", "yi-9b", "qwen3-0.6b"]:
         for get in ("get_config", "get_smoke"):
             assert (dataclasses.asdict(getattr(t_configs, get)(arch))
                     == dataclasses.asdict(getattr(j_configs, get)(arch)))
@@ -280,8 +280,8 @@ def test_registry_matches_reference():
     assert t_configs.get_config("svq") == t_configs.base.SVQConfig()
 
 
-@pytest.mark.parametrize("arch,item", [("smollm-360m", "A14"),
-                                       ("llama4-maverick-400b-a17b", "A14"),
+@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "A21"),
+                                       ("llama4-maverick-400b-a17b", "A21"),
                                        ("mace", "A20")])
 def test_registry_raises_for_unported_families(arch, item):
     for get in (t_configs.get_config, t_configs.get_smoke,

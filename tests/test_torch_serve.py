@@ -250,7 +250,8 @@ def test_port_alone_serves_at_smoke_config():
     assert t_ops.LAUNCHES == {name: 0 for name in (
         "cluster_rank", "merge_serve", "merge_serve_ds", "fused_gather_rank",
         "vq_assign", "inbatch_softmax", "inbatch_softmax_bwd",
-        "ema_segment_sum", "topk_dot", "embedding_bag")}
+        "ema_segment_sum", "topk_dot", "embedding_bag",
+        "flash_attention")}
 
 
 def test_unported_options_raise(trained):
