@@ -14,8 +14,8 @@ candidates and 512 queries against the 2,097,152-slot store) and of the
 recsys families (``embedding_bag``: DLRM-RM2's 8,000,000 x 64 multi-hot
 tables at B=512 and 262,144, two-tower's 16,777,216 x 256 history table)
 and of the LM family (``flash_attention``: the reference's single-head
-cases, Qwen3-0.6B's 32,768-token layer in bf16 and fp32, SmolLM-360M's
-B=8 x 4,096 layer).
+cases, Qwen3-0.6B's 32,768-token layer in bf16, its tensor-core route,
+and in fp32, its SIMT route, SmolLM-360M's B=8 x 4,096 layer).
 Then it serves full-width batches through ``RetrievalService`` unfused,
 fused (``fused_gather_rank``) and on 4 logical shards (unfused and
 fused), each held to the unfused single-device service's outputs; serves
@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2034,11 +2035,104 @@ def causal_pairs(s: int, t: int) -> int:
     return sum(min(t, i + t - s + 1) for i in range(s))
 
 
-def check_flash_attention(ops, ref, dev, gen) -> dict:
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by a short name: ``tc_hdp<N>`` (the bf16 route at padded head
+    dim N) or ``simt_nc<N>`` (the fp32 route)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '.*?(flash_tc_kernel|"
+                          r"flash_kernel)I(?:f)?Li(\d+)E", line)
+        if entry:
+            kind = "tc_hdp" if entry.group(1) == "flash_tc_kernel" else \
+                "simt_nc"
+            name = kind + entry.group(2)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+    return out
+
+
+def attn_fp64(q, k, v) -> torch.Tensor:
+    """Causal attention in fp64 (GQA repeated): the exact yardstick."""
+    s, t, rep = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    q, k, v = (x.double() for x in (q, k, v))
+    k, v = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * q.shape[-1] ** -0.5
+    pos = torch.arange(t, device=q.device)
+    logits = logits.masked_fill(pos[None, :] > pos[:s, None] + (t - s),
+                                -1e30)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1), v)
+
+
+def flash_wide_logits(ops, ref, dev) -> None:
+    """Logits x 30 (std about 25, so P spans many binades and its second
+    and third bf16 parts carry weight), B=2, S=T=300, H=4, Hk=2, hd=128,
+    bf16.  (a) q of +-30 or 0 and k on a 2^-6 grid: every q . k is exact
+    in fp32 in any order, so kernel and plain share their logits; counts
+    of outputs outside the bf16 tolerance of plain, for the kernel and
+    the library (a bf16 P).  (b) normal q x 30: errors against an fp64
+    attention of the kernel, the plain fp32 version and the library."""
+    g = np.random.default_rng(SEED)
+    shapes = ((2, 300, 4, 128), (2, 300, 2, 128), (2, 300, 2, 128))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(q, k, v):
+        return sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    def outside(got, want, extra=0.0) -> int:
+        tol = FLASH_TOL[torch.bfloat16]
+        return int(((got.double() - want.double()).abs() > tol["atol"]
+                    + extra + tol["rtol"] * want.double().abs()).sum())
+
+    exact = (30 * g.integers(-1, 2, size=shapes[0]),
+             np.clip(np.round(g.normal(size=shapes[1]) * 64), -255,
+                     255) / 64, g.normal(size=shapes[2]))
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(dev)
+               .to(torch.bfloat16) for x in exact)
+    want = ref.flash_attention_ref(q, k, v)
+    exact_dots = dict(kernel_outside=outside(ops.flash_attention(q, k, v),
+                                             want),
+                      library_outside=outside(library(q, k, v), want),
+                      n=want.numel())
+    q, k, v = (torch.from_numpy(g.normal(size=sh).astype(np.float32))
+               .to(dev) for sh in shapes)
+    q, k, v = (q * 30).to(torch.bfloat16), k.to(torch.bfloat16), \
+        v.to(torch.bfloat16)
+    truth = attn_fp64(q, k, v)
+    plain_err = float((ref.flash_attention_ref(q.float(), k.float(),
+                                               v.float()).double()
+                       - truth).abs().max())
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    normal = dict(plain_fp32_max_abs_err=plain_err,
+                  kernel_max_abs_err=float((got.double() - truth).abs()
+                                           .max()),
+                  kernel_outside=outside(got, truth),
+                  kernel_outside_plus_plain_err=outside(got, truth,
+                                                        plain_err),
+                  library_outside=outside(library(q, k, v), truth),
+                  n=truth.numel())
+    if exact_dots["kernel_outside"] or normal["kernel_outside_plus_plain_err"]:
+        raise AssertionError(f"flash_attention at logits x 30: exact dots "
+                             f"{exact_dots}, against fp64 {normal}")
+    phase("flash_attention_wide", shape=(2, 300, 4, 2, 128), dtype="bf16",
+          exact_dots_vs_plain=exact_dots, normal_vs_fp64=normal,
+          tol="bf16 rtol=8e-3 atol=1e-5 (+ plain's own fp64 error)")
+
+
+def check_flash_attention(ops, ref, build, dev, gen) -> dict:
     """Kernel vs plain at the reference's single-head cases, a ragged
     S=4,100, Qwen3-0.6B's layer (B=1, S=32,768, H=16, Hk=8, hd=128) in
     bf16 and fp32 and SmolLM-360M's (B=8, S=4,096, H=15, Hk=5, hd=64) in
-    bf16; times at Qwen3's layer in bf16."""
+    bf16; times at Qwen3's layer: the bf16 route (tensor cores), the fp32
+    route (SIMT), the plain version and the library's bf16 attention, and
+    the library's error against the same plain version."""
     errs = {}
     for s, hd, causal in FLASH_SINGLE:
         for dtype in ((torch.float32, torch.bfloat16) if hd == 20
@@ -2058,35 +2152,58 @@ def check_flash_attention(ops, ref, dev, gen) -> dict:
         torch.cuda.empty_cache()
     phase("flash_attention_check", max_abs_err=errs,
           tol="fp32 rtol=1e-4 atol=1e-5, bf16 rtol=8e-3 atol=1e-5")
+    flash_wide_logits(ops, ref, dev)
 
     b, s, h, hk, hd = 1, QWEN_S, 16, 8, 128
     q, k, v = attn_inputs(gen, dev, b, s, h, hk, hd, torch.bfloat16)
-    ms = time_ms(lambda: ops.flash_attention(q, k, v), 3, warmup=1)
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), 2,
-                       warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # both against the same plain version: the kernel keeps P in fp32, the
+    # library rounds P to bf16
+    want = ref.flash_attention_ref(q, k, v).float()
+    kernel_err = float((ops.flash_attention(q, k, v).float() - want)
+                       .abs().max())
+    library_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                         .transpose(1, 2).float() - want).abs().max())
+    del want
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 5, warmup=1)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), 2,
+                       warmup=1)
     lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                   enable_gqa=True), 5)
-    # each kept (query, key) pair: 2 hd flop of q.k^T on bf16 inputs (the
-    # tensor cores' rate: an fp32 accumulate of bf16 products is exact),
-    # one exp, and 2 hd flop of P.V with P in fp32 (the fp32 pipes' rate);
-    # the pipes run side by side, so the bound is the slowest of them
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    fp32_ms = time_ms(lambda: ops.flash_attention(q32, k32, v32), 2,
+                      warmup=1)
+    del q32, k32, v32
+    # each kept (query, key) pair: 2 hd flop of q.k^T on the bf16 tensor
+    # cores (an fp32 accumulate of bf16 products is exact), one exp, and
+    # 3 x 2 hd flop of P.V (P split into three exact bf16 parts, three
+    # passes on the tensor cores, which q.k^T shares); the bound is the
+    # slowest of the pipes
     pairs = h * b * causal_pairs(s, s)
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     parts = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-             "qk_bf16_tensor": 2 * hd * pairs / BF16_TC_FLOP_PER_S * 1e3,
-             "exp_mufu": pairs / EXP_PER_S * 1e3,
-             "pv_fp32": 2 * hd * pairs / FP32_FLOP_PER_S * 1e3}
+             "tensor_qk_3pv": 8 * hd * pairs / BF16_TC_FLOP_PER_S * 1e3,
+             "exp_mufu": pairs / EXP_PER_S * 1e3}
     part = max(parts, key=parts.get)
     t_bound, by = parts[part], "bytes" if part == "bytes" else "operations"
+    # the fp32 route: both products in the fp32 pipes
+    fp32_bound = 4 * hd * pairs / FP32_FLOP_PER_S * 1e3
     phase("flash_attention_time", shape=(b, s, h, hk, hd), dtype="bf16",
           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
           library="F.scaled_dot_product_attention(is_causal, enable_gqa)",
+          max_abs_err_vs_plain=kernel_err,
+          library_max_abs_err_vs_plain=library_err,
           bound_ms=t_bound, bound_by=by, bound_set_by=part,
           bound_parts_ms=parts, n_exp=pairs,
           share_of_bound=t_bound / ms,
-          both_products_fp32_ms=4 * hd * pairs / FP32_FLOP_PER_S * 1e3)
+          tflop_per_s_qk_3pv=8 * hd * pairs / ms / 1e9,
+          qk_bf16_tensor_ms=2 * hd * pairs / BF16_TC_FLOP_PER_S * 1e3,
+          pv_3x_bf16_tensor_ms=6 * hd * pairs / BF16_TC_FLOP_PER_S * 1e3,
+          pv_fp32_ms=2 * hd * pairs / FP32_FLOP_PER_S * 1e3,
+          both_products_fp32_ms=fp32_bound,
+          fp32_route_ms=fp32_ms, fp32_route_bound_ms=fp32_bound,
+          ptxas=ptxas_usage(build.build_log("flash_attention")))
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return dict(name="flash_attention", route="cuda",
@@ -2489,7 +2606,7 @@ def main() -> int:
                check_ema_segment_sum(ops, ref, cfg, dev, gen),
                check_topk_dot(ops, ref, cfg, dev, gen),
                check_embedding_bag(ops, ref, dev, gen),
-               check_flash_attention(ops, ref, dev, gen)]
+               check_flash_attention(ops, ref, build, dev, gen)]
     torch.cuda.empty_cache()
 
     main = main_path(retriever, astore, RetrievalService, cfg, dev)

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own with ``nvcc`` into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the repo root, at first use, from the sources in the checkout.  The file
 name carries a hash of the source, of the shared headers
-(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt.  A failed build raises.
+(``csrc/*.cuh``) and of ``NVCC_FLAGS``, so an edited source or flag is
+rebuilt.  A failed build raises.  What ``nvcc`` prints for a build that
+succeeds (with ``-Xptxas -v``: each kernel's registers and spills) is
+kept beside the library as ``<name>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ KERNELS = ("cluster_rank", "merge_serve", "fused_gather_rank", "vq_assign",
            "inbatch_softmax", "ema_segment_sum", "topk_dot", "embedding_bag",
            "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,7 +81,7 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
-        "flash_attention_smem_bytes": ([_I], ctypes.c_size_t),
+        "flash_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "flash_attention_max_hd": ([], _I),
     },
 }
@@ -107,6 +110,13 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{tag}.so"
 
 
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built kernel ``name`` ("" if nothing
+    was kept)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def _compile(name: str) -> Path:
     out = _target(name)
     if out.exists():
@@ -118,6 +128,7 @@ def _compile(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

@@ -581,8 +581,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, S, H, hd), k and v (B, T, Hk, hd) with H % Hk == 0 (query head
     h reads kv head h // (H // Hk)); or q, k, v (S, hd), one head, as the
     reference's ``ops.flash_attention``.  fp32 or bf16, contiguous, read
-    in place; 1 <= hd <= 256, any S, T >= 1 (T >= S when causal).  No
-    gradient: on the card an input that requires one raises."""
+    in place; 1 <= hd <= 256, any S, T >= 1 (T >= S when causal).  On the
+    card bf16 runs on the tensor cores (P split into three exact bf16
+    parts), fp32 in the fp32 pipes.  No gradient: on the card an input
+    that requires one raises."""
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -613,13 +615,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    _check_smem("flash_attention", lib.flash_attention_smem_bytes(hd),
+    bf16 = _FLASH_DTYPES[q.dtype]
+    _check_smem("flash_attention", lib.flash_attention_smem_bytes(hd, bf16),
                 f"hd={hd}")
     with torch.cuda.device(q.device):
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
-            h, hk, hd, int(causal), hd ** -0.5, _FLASH_DTYPES[q.dtype],
-            _stream(q.device))
+            h, hk, hd, int(causal), hd ** -0.5, bf16, _stream(q.device))
     _raise_on_error(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -196,6 +196,24 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     return s
 
 
+def split_bf16x3(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The bf16 flash_attention kernel's split of its fp32 probabilities
+    (``csrc/flash_attention.cu``, ``split3``): ``p1 = bf16_rn(p)``, ``p2 =
+    bf16_rn(p - p1)``, ``p3 = bf16_rn(p - p1 - p2)``, both subtractions
+    exact in fp32.  The three 8-bit significands cover p's 24, so ``p1 +
+    p2 + p3 == p`` exactly where p >= 2^-110 (below that the last part
+    falls under bf16's smallest subnormal, 2^-133); the kernel's three
+    tensor-core passes over the parts then take P.V with P in fp32.  Not
+    on any path: it documents and tests the kernel's arithmetic."""
+    p = p.to(torch.float32)
+    p1 = p.to(torch.bfloat16)
+    r = p - p1.to(torch.float32)
+    p2 = r.to(torch.bfloat16)
+    p3 = (r - p2.to(torch.float32)).to(torch.bfloat16)
+    return p1, p2, p3
+
+
 # a chunk of query rows of the plain attention keeps its fp32 logits under
 # this many elements (each row's softmax is its own, so chunks change no
 # arithmetic)

@@ -925,6 +925,105 @@ def test_flash_attention_kernel_gqa_ragged_matches_plain(cuda, b, s, t, h, hk,
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
 
 
+def _held_to_plain(q, k, v, causal):
+    """One launch per call, the plain version's tolerance, and two launches
+    bitwise equal."""
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal)
+    again = ops.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 2
+    assert got.dtype == q.dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(q.dtype))
+
+
+@pytest.mark.parametrize("b,s,t,h,hk,hd,causal", [
+    (1, 129, 129, 2, 1, 128, True),      # ragged tails of the 128-row
+    (1, 255, 255, 4, 2, 128, True),      # blocks and the 64-key tiles
+    (1, 4100, 4100, 2, 1, 128, True),
+    (2, 100, 100, 2, 1, 1, True),        # hd % 8 != 0: element copies,
+    (2, 100, 100, 2, 1, 8, True),        # hd below 64 zero-padded in
+    (2, 150, 150, 2, 2, 20, True),       # shared memory
+    (1, 300, 300, 2, 1, 256, True),      # the widest head, 32-key tiles
+    (2, 70, 333, 4, 2, 64, True),        # T > S: the causal offset
+    (1, 200, 520, 2, 1, 128, True),
+    (2, 90, 70, 2, 1, 128, False)])      # T < S, no mask
+def test_flash_attention_bf16_tensor_core_route_edges(cuda, b, s, t, h, hk,
+                                                      hd, causal):
+    q, k, v = _attn_case(np.random.default_rng(s * t + hd), b, s, t, h, hk,
+                         hd, torch.bfloat16, cuda)
+    _held_to_plain(q, k, v, causal)
+
+
+def _attn_fp64(q, k, v, causal):
+    """The attention in fp64 (GQA repeated), as the exact yardstick."""
+    s, t, rep = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    q, k, v = (x.double() for x in (q, k, v))
+    k, v = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        pos = torch.arange(t, device=q.device)
+        mask = pos[None, :] > pos[:s, None] + (t - s)
+        logits = logits.masked_fill(mask, -1e30)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1), v)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bf16_wide_logits(cuda, hd):
+    """Logits x 30 (std about 25): p spans many binades, so P's second and
+    third bf16 parts carry weight the output needs.  q is +-30 or 0 and k
+    lies on a 2^-6 grid, so every q . k is exact in fp32 in any summation
+    order and the kernel's logits are the plain version's: the case holds
+    the exp and the three-pass P.V to the plain version's tolerance."""
+    g = np.random.default_rng(hd)
+    q = 30 * g.integers(-1, 2, size=(2, 300, 4, hd))
+    k = np.clip(np.round(g.normal(size=(2, 300, 2, hd)) * 64), -255, 255) / 64
+    v = g.normal(size=(2, 300, 2, hd))
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda)
+               .to(torch.bfloat16) for x in (q, k, v))
+    _held_to_plain(q, k, v, True)
+
+
+def test_flash_attention_bf16_wide_logits_near_fp64(cuda):
+    """Normal q x 30 and k: there the fp32 dot's own rounding, in any
+    order, moves outputs that come from cancellation by more than 1e-5
+    (the plain version against an fp64 attention).  The kernel stays
+    within one bf16 rounding (the bf16 tolerance) plus the plain fp32
+    version's own largest error of the fp64 attention."""
+    q, k, v = _attn_case(np.random.default_rng(128), 2, 300, 300, 4, 2, 128,
+                         torch.float32, cuda)
+    q, k, v = (q * 30).to(torch.bfloat16), k.to(torch.bfloat16), \
+        v.to(torch.bfloat16)
+    exact = _attn_fp64(q, k, v, True)
+    plain_err = float((ref.flash_attention_ref(q.float(), k.float(),
+                                               v.float(), True).double()
+                       - exact).abs().max())
+    got = ops.flash_attention(q, k, v, True).double()
+    tol = _attn_tol(torch.bfloat16)
+    assert torch.all((got - exact).abs() <= tol["atol"] + plain_err
+                     + tol["rtol"] * exact.abs())
+
+
+def test_flash_attention_bf16_unaligned_pointers(cuda):
+    """Inputs that start 2 bytes past a 16-byte boundary cannot take a
+    tensor map: the producer copies element by element instead."""
+    q, k, v = _attn_case(np.random.default_rng(7), 1, 200, 200, 2, 1, 128,
+                         torch.bfloat16, cuda)
+    shifted = []
+    for x in (q, k, v):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0 and y.is_contiguous()
+        shifted.append(y)
+    _held_to_plain(*shifted, True)
+    torch.testing.assert_close(ops.flash_attention(*shifted).float(),
+                               ops.flash_attention(q, k, v).float(),
+                               **_attn_tol(torch.bfloat16))
+
+
 def test_flash_attention_rejects_grad_and_bad_inputs_on_card(cuda):
     """A grad-requiring input raises naming A22 (no backward kernel yet)
     and never falls back; under no_grad it launches."""

@@ -215,3 +215,81 @@ def test_wrappers_raise_off_cpu_and_cuda():
                           torch.empty((2, 4, 6), device="meta"),
                           torch.empty((2, 4), dtype=torch.int32,
                                       device="meta"), 2, 8)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's bf16 route: P split into three exact bf16 parts
+# ---------------------------------------------------------------------------
+
+def _probabilities(kind, seed):
+    g = np.random.default_rng(seed)
+    if kind == "exp":        # p = exp(x), x uniform in [-80, 0]
+        p = np.exp(g.uniform(-80.0, 0.0, size=50_000)).astype(np.float32)
+    elif kind == "unit":     # p in (0, 1]
+        p = (1.0 - g.uniform(0.0, 1.0, size=50_000)).astype(np.float32)
+    else:                    # exact powers of two
+        p = np.float32(2.0) ** g.integers(-110, 1, size=2_000).astype(
+            np.float32)
+    return torch.from_numpy(p)
+
+
+@pytest.mark.parametrize("kind", ["exp", "unit", "pow2"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_bf16x3_sums_to_p_bitwise(kind, seed):
+    """p1 + p2 + p3 == p bitwise in fp32 where p >= 2^-110; below, the
+    last part falls under bf16's smallest subnormal and the sum is off by
+    at most half of it (2^-134).  With v bf16, p1 v + p2 v + p3 v in fp64
+    is then fp64(p) v bitwise."""
+    p = _probabilities(kind, seed)
+    parts = t_ref.split_bf16x3(p)
+    assert all(x.dtype == torch.bfloat16 for x in parts)
+    p1, p2, p3 = (x.float() for x in parts)
+    total = (p1 + p2) + p3
+    exact = p >= 2.0 ** -110
+    assert torch.equal(total[exact].view(torch.int32),
+                       p[exact].view(torch.int32))
+    off = (total[~exact].double() - p[~exact].double()).abs()
+    assert off.numel() == 0 or float(off.max()) <= 2.0 ** -134
+    if kind == "pow2":           # one part holds it all
+        assert torch.equal(p1, p) and not p2.any() and not p3.any()
+    v = torch.from_numpy(np.random.default_rng(seed + 10).normal(
+        size=(1, 16)).astype(np.float32)).to(torch.bfloat16).double()
+    pe = p[exact][:4_096].reshape(-1, 1)
+    q1, q2, q3 = (x.double() for x in t_ref.split_bf16x3(pe))
+    assert torch.equal((q1 * v + q2 * v) + q3 * v, pe.double() * v)
+
+
+@pytest.mark.parametrize("s,t,hd,causal", [(64, 64, 16, True),
+                                           (48, 80, 20, True),
+                                           (40, 40, 8, False)])
+def test_three_pass_attention_matches_plain(s, t, hd, causal):
+    """Attention with P.V taken as the kernel takes it (P fp32, split into
+    its three bf16 parts, three passes with v, here summed in fp64) holds
+    to the plain fp32 flash_attention_ref within rtol 1e-6: the split
+    rounds nothing, where a bf16 P would move the output by about 2^-9."""
+    g = np.random.default_rng(s * t + hd)
+    q, k, v = (torch.from_numpy(g.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16).float()
+               for shape in ((s, hd), (t, hd), (t, hd)))
+    logits = (q @ k.T) * hd ** -0.5
+    if causal:
+        qpos = torch.arange(s)[:, None] + (t - s)
+        logits = logits.masked_fill(torch.arange(t)[None, :] > qpos, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    got = sum(x.double() @ v.double() for x in t_ref.split_bf16x3(p))
+    want = t_ref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want, rtol=1e-6, atol=1e-7)
+    bf16_p = p.to(torch.bfloat16).double() @ v.double()
+    assert float((bf16_p.float() - want).abs().max()) > 1e-5
+
+
+def test_build_target_hashes_nvcc_flags(monkeypatch):
+    """The nvcc flags are hashed into every library's name, so a changed
+    flag rebuilds each kernel.  Nothing is compiled here."""
+    from repro_torch.kernels import build
+    before = {name: build._target(name) for name in build.KERNELS}
+    assert "-Xptxas" in build.NVCC_FLAGS
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-DX=1",))
+    for name, path in before.items():
+        changed = build._target(name)
+        assert changed != path and changed.name.startswith(f"{name}-")
