@@ -3,6 +3,7 @@
 one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py cluster_rank inbatch_softmax   # those phases only
 
 Builds the nine hand-written kernel sources from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at once) and
@@ -68,6 +69,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12  # dense bf16 tensor cores
+TF32_TC_FLOP_PER_S = 495e12  # dense tf32 tensor cores
 # exps a second: 16 MUFU.EX2 results a clock an SM (CUDA C++ programming
 # guide, throughput table, compute capability 9.0) x 132 SMs x 1,980 MHz
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -141,6 +143,7 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
 
 def check_cluster_rank(ops, ref, cfg, dev, gen) -> dict:
     """Kernel vs plain at the serve shape, on random and on tied inputs."""
+    from repro_torch.kernels import build
     b, k, d, n = BATCH, cfg.n_clusters, cfg.embed_dim, cfg.clusters_per_query
     u = torch.randn((b, d), generator=gen, device=dev)
     e = torch.randn((k, d), generator=gen, device=dev) * 0.1
@@ -184,9 +187,16 @@ def check_cluster_rank(ops, ref, cfg, dev, gen) -> dict:
     ms = time_ms(lambda: ops.cluster_rank(u, e, n), iters=50)
     plain_ms = time_ms(lambda: ref.cluster_rank_ref(u, e, n), iters=50)
     lib_ms = time_ms(lambda: torch.topk(u @ e.T, n), iters=50)
+    split = kernel_split_ms(lambda: ops.cluster_rank(u, e, n))
     t_bound, by = bound_ms(4 * (b * d + k * d) + 8 * b * n, 2 * b * k * d)
     phase("cluster_rank_time", ms=ms, plain_ms=plain_ms, topk_ms=lib_ms,
-          bound_ms=t_bound)
+          bound_ms=t_bound,
+          score_ms=sum(t for name, t in split.items() if "score" in name),
+          select_ms=sum(t for name, t in split.items()
+                        if "score" not in name),
+          device_ms=short_names(split),
+          ptxas=ptxas_entries(build.build_log("cluster_rank"),
+                              ("score_kernel", "select_kernel")))
     return dict(name="cluster_rank", route="cuda",
                 source="src/repro_torch/kernels/csrc/cluster_rank.cu",
                 replaces="src/repro/kernels/merge_serve.py:101",
@@ -964,6 +974,7 @@ def check_inbatch_softmax(ops, ref, cfg, dev, gen) -> list:
     """Forward and backward kernels vs plain (rtol 1e-4, atol 1e-5) at
     the train shape B=65536, at B=16384 and at a ragged B; then times at
     the train shape, on the inputs that were checked."""
+    from repro_torch.kernels import build
     d = cfg.embed_dim
     err_f = err_b = 0.0
     for b in SOFTMAX_CHECK_B:
@@ -1008,14 +1019,31 @@ def check_inbatch_softmax(ops, ref, cfg, dev, gen) -> list:
                       iters=3, warmup=1)
     torch.cuda.empty_cache()
     # bytes: each input read once, each output written once.  Operations:
-    # the forward's logits z (2*B*B*d); the backward's z once and its two
-    # contractions p.v and (g.p)^T.u (6*B*B*d; the kernels compute z
-    # twice, which the bound does not count)
+    # the forward's logits z (2*B*B*d) in the fp32 pipes.  The backward's z
+    # once and its two contractions p.v and (g.p)^T.u, 6*B*B*d, run as
+    # three tf32 passes on the tensor cores (the kernels compute z twice,
+    # which the bound does not count), beside B*B exps on MUFU; the bound
+    # is the slowest of the parts
     bf, byf = bound_ms(4 * (2 * b * d + 5 * b), 2 * b * b * d)
-    bb, byb = bound_ms(4 * (4 * b * d + 6 * b), 6 * b * b * d)
+    parts = {"bytes": 4 * (4 * b * d + 6 * b) / HBM_BYTES_PER_S * 1e3,
+             "tensor_3xtf32": 3 * 6 * b * b * d / TF32_TC_FLOP_PER_S * 1e3,
+             "exp_mufu": b * b / EXP_PER_S * 1e3}
+    part = max(parts, key=parts.get)
+    bb, byb = parts[part], "bytes" if part == "bytes" else "operations"
+    split_b = kernel_split_ms(
+        lambda: ops.inbatch_softmax_bwd(u, v, bias, lq, lse, g), calls=2)
     phase("inbatch_softmax_time", b=b, fwd_ms=ms_f, bwd_ms=ms_b,
           plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
-          bound_fwd_ms=bf, bound_bwd_ms=bb)
+          bound_fwd_ms=bf, bound_bwd_ms=bb, bound_bwd_set_by=part,
+          bound_bwd_peak="495 TFLOP/s tf32 tensor x 3 passes",
+          bound_bwd_parts_ms=parts, share_of_bwd_bound=bb / ms_b,
+          bwd_fp32_pipes_ms=6 * b * b * d / FP32_FLOP_PER_S * 1e3,
+          bwd_device_ms=short_names(split_b),
+          ptxas=ptxas_entries(build.build_log("inbatch_softmax"),
+                              ("fwd_kernel", "prep_kernel", "bwd_kernel")))
+    del u, v, bias, lq, lse, g, timed
+    torch.cuda.empty_cache()
+    wide_logits(ops, ref, dev, gen)
     src = "src/repro_torch/kernels/csrc/inbatch_softmax.cu"
     return [dict(name="inbatch_softmax", route="cuda", source=src,
                  replaces="src/repro/kernels/inbatch_softmax.py:37",
@@ -1025,6 +1053,36 @@ def check_inbatch_softmax(ops, ref, cfg, dev, gen) -> list:
                  replaces="src/repro/kernels/inbatch_softmax.py:133",
                  max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                  bound_ms=bb, bound_by=byb, library_ms=None)]
+
+
+def wide_logits(ops, ref, dev, gen, b=16384) -> None:
+    """u, v of scale 2 (logits of sd 16) at d=64: the backward kernel and
+    plain each against an fp64 backward; fails where the kernel errs by
+    more than plain's own largest error plus rtol 1e-4 / atol 1e-5."""
+    u, v, bias, lq, g = softmax_inputs(b, 64, dev, gen)
+    u, v = u * 4.0, v * 4.0   # softmax_inputs draws them at scale 0.5
+    _, m, l = ref.inbatch_softmax_ref(u, v, bias, lq)
+    lse = m + torch.log(l)
+    got = ops.inbatch_softmax_bwd(u, v, bias, lq, lse, g)
+    plain = ref.inbatch_softmax_bwd_ref(u, v, bias, lq, lse, g)
+    exact = ref.inbatch_softmax_bwd_ref(
+        *(x.double() for x in (u, v, bias, lq, lse, g)))
+    worst_k, worst_p, outside = 0.0, 0.0, 0
+    for k, p, x in zip(got, plain, exact):
+        err_k = (k.double() - x).abs()
+        err_p = float((p.double() - x).abs().max())
+        tol = 1e-5 + 1e-4 * x.abs()
+        if not bool((err_k <= err_p + tol).all()):
+            raise AssertionError("inbatch_softmax_bwd errs beyond plain's "
+                                 "error plus the tolerance on wide logits")
+        worst_k = max(worst_k, float(err_k.max()))
+        worst_p = max(worst_p, err_p)
+        outside += int((err_k > tol).sum())
+    del exact
+    torch.cuda.empty_cache()
+    phase("inbatch_softmax_wide", b=b, d=64, scale=2.0,
+          max_abs_err_to_fp64=worst_k, plain_max_abs_err_to_fp64=worst_p,
+          kernel_outside_bare_tolerance=outside)
 
 
 def segment_sum_errors(ref, v, a, wt, k, *results) -> list:
@@ -1106,8 +1164,10 @@ def check_ema_segment_sum(ops, ref, cfg, dev, gen) -> dict:
     ms_skew = time_ms(lambda: ops.ema_segment_sum(v, a_skew, wt, k), iters=20)
     ms = time_ms(lambda: ops.ema_segment_sum(v, a, wt, k), iters=20)
     plain_ms = time_ms(lambda: ref.ema_segment_sum_ref(v, a, wt, k), iters=20)
-    # the library call: index_add_ of wt.v for w_add, with the rows outside
-    # [0, K) sent to cluster 0 at weight 0 (the same sums)
+    # index_add_ of a precomputed wt.v for w_add, with the rows outside
+    # [0, K) sent to cluster 0 at weight 0: a reading of part of the
+    # function (no product wt.v, no c_add, no masking), so no single
+    # PyTorch call stands as its library time
     inside = a < k
     a_in = torch.where(inside, a, 0).long()
     wv = (torch.where(inside, wt, 0.0)[:, None] * v).contiguous()
@@ -1120,7 +1180,7 @@ def check_ema_segment_sum(ops, ref, cfg, dev, gen) -> dict:
                 source="src/repro_torch/kernels/csrc/ema_segment_sum.cu",
                 replaces="src/repro/kernels/vq_ema.py:34",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=t_bound, bound_by=by, library_ms=lib_ms)
+                bound_ms=t_bound, bound_by=by, library_ms=None)
 
 
 def topk_case(gen, dev, b, n, d, integer=False, dup=0, live=None,
@@ -1178,12 +1238,9 @@ def topk_vs_plain(ops, ref, u, items, bias, k, bitwise, block_n=None):
     return float((vals - rv).abs().max()), n_diff
 
 
-def kernel_device_ms(fn, kernel: str, calls: int = 3) -> tuple:
-    """Device time per call of ``fn`` under torch.profiler: that of the
-    kernels whose name holds ``kernel``, and that of every kernel the call
-    launches (topk_dot's stage 2 sort and gathers too).  A call's
-    event-timed ms also holds its host time where the host is the slower
-    side."""
+def kernel_split_ms(fn, calls: int = 5) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, by kernel
+    name, under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1192,12 +1249,26 @@ def kernel_device_ms(fn, kernel: str, calls: int = 3) -> tuple:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    total = sum(dev_us(e, True) for e in kernels) / 1e3 / calls
-    own = sum(dev_us(e, True) for e in kernels
-              if kernel in e.key) / 1e3 / calls
-    return own, total
+    return {e.key: dev_us(e, True) / 1e3 / calls
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and dev_us(e, True) > 0}
+
+
+def kernel_device_ms(fn, kernel: str, calls: int = 3) -> tuple:
+    """Device time per call of ``fn`` under torch.profiler: that of the
+    kernels whose name holds ``kernel``, and that of every kernel the call
+    launches (topk_dot's stage 2 sort and gathers too).  A call's
+    event-timed ms also holds its host time where the host is the slower
+    side."""
+    split = kernel_split_ms(fn, calls)
+    return (sum(ms for name, ms in split.items() if kernel in name),
+            sum(split.values()))
+
+
+def short_names(split: dict) -> dict:
+    """A kernel_split_ms reading for a phase line: names cut to 60
+    characters, ms to 5 decimals."""
+    return {name[:60]: round(ms, 5) for name, ms in split.items()}
 
 
 def check_topk_dot(ops, ref, cfg, dev, gen) -> dict:
@@ -1370,8 +1441,13 @@ def profile_train_step(cfg, state, stream, dev) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = device_breakdown(prof)
+    # the in-batch softmax backward's two kernels (2 launches each a step)
+    bwd_ms = {side: sum(dev_us(e, True) for e in prof.key_averages()
+                        if "bwd_kernel<" in e.key and flag in e.key) / 1e3
+              for side, flag in (("du", "false>"), ("dv", "true>"))}
     phase("train_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-          idle_share=1 - busy_ms / wall_ms, top_kernels_ms=top)
+          idle_share=1 - busy_ms / wall_ms, bwd_kernel_device_ms=bwd_ms,
+          top_kernels_ms=top)
 
 
 def serve_trained(svc, params, index, cfg) -> None:
@@ -2057,6 +2133,32 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+def ptxas_entries(log: str, kernels: tuple) -> dict:
+    """Registers and spill bytes of each entry function of an ``nvcc
+    -Xptxas -v`` log whose mangled name holds one of ``kernels``, named
+    after it with its template integers (``bwd_kernel<64,1>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            hit = next((k for k in kernels if k in entry.group(1)), None)
+            name = None
+            if hit:
+                args = re.match(r"I((?:L[a-z]\d+E)+)E",
+                                entry.group(1).split(hit, 1)[1])
+                ints = re.findall(r"L[a-z](\d+)E", args.group(1)) \
+                    if args else []
+                name = hit + (f"<{','.join(ints)}>" if ints else "")
+                out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+    return out
+
+
 def attn_fp64(q, k, v) -> torch.Tensor:
     """Causal attention in fp64 (GQA repeated): the exact yardstick."""
     s, t, rep = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
@@ -2569,7 +2671,9 @@ def lm_small_reference(ops, dev) -> None:
           largest_leaf_diffs=top)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """``argv``: names of kernel sources (``build.KERNELS``) whose phases
+    alone to run, with no main path and no final line; none runs all."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2588,26 +2692,44 @@ def main() -> int:
           count=torch.cuda.device_count(), nvidia_smi=repr(card),
           torch=torch.__version__, cuda=torch.version.cuda)
 
+    cfg = CONFIG
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    checks = {
+        "cluster_rank": lambda: [check_cluster_rank(ops, ref, cfg, dev, gen)],
+        "merge_serve": lambda: [
+            check_merge_serve(ops, ref, cfg, dev, gen, 256),
+            check_merge_serve_ds(ops, ref, cfg, dev, gen, 256)],
+        "fused_gather_rank": lambda: [
+            check_fused_gather_rank(ops, ref, cfg, dev, gen, 256)],
+        "vq_assign": lambda: [check_vq_assign(ops, ref, cfg, dev, gen)],
+        "inbatch_softmax": lambda: check_inbatch_softmax(ops, ref, cfg, dev,
+                                                         gen),
+        "ema_segment_sum": lambda: [
+            check_ema_segment_sum(ops, ref, cfg, dev, gen)],
+        "topk_dot": lambda: [check_topk_dot(ops, ref, cfg, dev, gen)],
+        "embedding_bag": lambda: [check_embedding_bag(ops, ref, dev, gen)],
+        "flash_attention": lambda: [
+            check_flash_attention(ops, ref, build, dev, gen)]}
+    only = [name for name in (argv or []) if name]
+    unknown = set(only) - set(checks)
+    if unknown:
+        print(f"chip_smoke: unknown kernel sources {sorted(unknown)}; "
+              f"known: {sorted(checks)}", file=sys.stderr)
+        return 2
+
     t0 = time.perf_counter()
-    built = build.build()
+    built = build.build(only or build.KERNELS)
     for name in built:
         build.load(name)
     phase("build", seconds=time.perf_counter() - t0,
           libraries=",".join(p.name for p in built.values()))
 
-    cfg = CONFIG
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = [check_cluster_rank(ops, ref, cfg, dev, gen),
-               check_merge_serve(ops, ref, cfg, dev, gen, 256),
-               check_merge_serve_ds(ops, ref, cfg, dev, gen, 256),
-               check_fused_gather_rank(ops, ref, cfg, dev, gen, 256),
-               check_vq_assign(ops, ref, cfg, dev, gen),
-               *check_inbatch_softmax(ops, ref, cfg, dev, gen),
-               check_ema_segment_sum(ops, ref, cfg, dev, gen),
-               check_topk_dot(ops, ref, cfg, dev, gen),
-               check_embedding_bag(ops, ref, dev, gen),
-               check_flash_attention(ops, ref, build, dev, gen)]
+    kernels = [k for name in (only or checks) for k in checks[name]()]
     torch.cuda.empty_cache()
+    if only:
+        # a partial run: the named kernel sources' phases, no main paths
+        print(json.dumps({"kernels": kernels}))
+        return 0
 
     main = main_path(retriever, astore, RetrievalService, cfg, dev)
     serve_launches = main["launches"]
@@ -2666,4 +2788,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -36,8 +36,9 @@ _F = ctypes.c_float
 # C signatures of the launch functions: (argtypes, restype)
 _SIGNATURES = {
     "cluster_rank": {
-        "cluster_rank_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "cluster_rank_launch": ([_P] * 6 + [_I, _I, _I, _I, _P], _I),
         "cluster_rank_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "cluster_rank_segments": ([_I], _I),
     },
     "merge_serve": {
         "merge_serve_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -59,9 +60,9 @@ _SIGNATURES = {
     "inbatch_softmax": {
         "inbatch_softmax_fwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                         _P], _I),
-        "inbatch_softmax_bwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _P], _I),
+        "inbatch_softmax_bwd_launch": ([_P] * 10 + [_I, _I, _P], _I),
         "inbatch_softmax_smem_bytes": ([_I], ctypes.c_size_t),
+        "inbatch_softmax_bwd_scratch_floats": ([_I, _I], ctypes.c_size_t),
         "inbatch_softmax_max_d": ([], _I),
     },
     "ema_segment_sum": {

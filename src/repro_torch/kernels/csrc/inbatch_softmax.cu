@@ -6,8 +6,8 @@
 //             stats m_o = max_r z_or and l_o = sum_r exp(z_or - m_o);
 //   backward  from the saved lse_o = m_o + log(l_o) and the cotangent g,
 //             p_or = exp(z_or - lse_o):
-//               du_acc_o = sum_r p_or v_r            (du_kernel)
-//               dv_acc_r = sum_o g_o p_or u_o        (dv_kernel)
+//               du_acc_o = sum_r p_or v_r            (bwd_kernel<DP, false>)
+//               dv_acc_r = sum_o g_o p_or u_o        (bwd_kernel<DP, true>)
 //               db_acc_r = sum_o g_o p_or
 //             and the wrapper adds the rank-one terms -g v, -g u, -g.
 //
@@ -18,34 +18,66 @@
 //
 // Bound on Hopper: at the train shape (B=65536, d=64) the forward does
 //   2*B*B*d = 550 GFLOP of fp32 FMAs (8.2 ms at 67 TFLOP/s).  The
-//   backward needs z once and its two contractions, 6*B*B*d = 1.65 TFLOP
-//   (24.6 ms); the two kernels here do 8*B*B*d, since each recomputes z.
-//   Bytes are tens of MB: all three are bound by the fp32 pipes.  B*B
-//   exponentials (4.3 G) ride along.
+//   backward needs z once and its two contractions, 6*B*B*d = 1.65 TFLOP:
+//   24.6 ms in the fp32 pipes, or, as three tf32 passes on the tensor
+//   cores, 4.95 TFLOP at 495 TFLOP/s = 10.0 ms; its B*B exponentials
+//   (4.3 G) take 1.03 ms.  Bytes are tens of MB: all of it is bound by
+//   operations.
 //
 // Design: nothing (B, B) is ever written, and no float atomics are used,
 //   so every result is the same from run to run.  Hopper's blocks run in
-//   no order, so each carried accumulator becomes a loop inside a block:
-//   - fwd_kernel: one block per 64-row tile keeps its u tile in shared
-//     memory and loops over 128-column tiles of v (tiles.cuh: 4 x 8
+//   no order, so each carried accumulator becomes a loop inside a block.
+//   - fwd_kernel (fp32 SIMT): one block per 64-row tile keeps its u tile in
+//     shared memory and loops over 128-column tiles of v (tiles.cuh: 4 x 8
 //     micro-tile of fp32 FMAs per thread).  Each thread keeps an online
 //     (m, l) per row over its own columns and the diagonal where it
 //     meets it; the 16 owners of a row merge at the end by shuffles.
-//   - du_kernel: one block per 64-row tile loops over column tiles,
-//     recomputes z, writes p to shared memory and accumulates p . v into
-//     a 64 x d register tile.
-//   - dv_kernel: one block per 128-column tile keeps its v tile and loops
-//     over row tiles, recomputes z, writes g p to shared memory and
-//     accumulates (g p)^T . u into a 128 x d register tile and the column
-//     sums of g p; the per-thread partial column sums are added in a
-//     fixed order at the end.
+//   - backward, on the tensor cores at fp32 accuracy (tf32x3.cuh: 3xTF32
+//     on wgmma).  The fp32 SIMT version (du_kernel + dv_kernel, 105 ms a
+//     call at the train shape on an H100) was bound by the fp32 pipes; a
+//     single tf32 pass would break rtol 1e-4 / atol 1e-5.  prep_kernel
+//     splits u and v once a launch into tf32 hi and lo parts, zero-padded
+//     to DP = d rounded up to 32 and Bp = B rounded up to 128 (zeros are
+//     exact), with transposed copies whose columns take each 8 rows in the
+//     order {0, 2, 4, 6, 1, 3, 5, 7}, and packs (bias, logQ) and (lse, g).
+//     One kernel body serves both sides: a block, one warpgroup, owns 64
+//     "fixed" rows (u rows for du, v rows for dv) and streams 32-row tiles
+//     of the other operand through a two-stage cp.async ring.  For each
+//     tile it runs
+//       z (64 x 32) = fixed . stream^T       wgmma m64n32k8: the fixed
+//                                            rows from registers (d <= 64;
+//                                            three blocks an SM) or shared
+//                                            memory, the tile K-major in
+//                                            shared memory,
+//     turns z into p (du) or g p (dv) in its registers, and contracts it
+//       acc (64 x DP) += p . stream          wgmma m64nDPk8, p from
+//                                            registers, the transposed
+//                                            stream tile from shared memory,
+//     three passes each (lo.hi, hi.lo, hi.hi).  tf32 wgmma takes K-major
+//     operands only, hence the transposed copies; the accumulator fragment
+//     of z is the register A fragment of the second product once the 8
+//     rows of a k-step are taken in the permuted order, so p never leaves
+//     the registers, and its split is the only per-element one.  Each
+//     tile's contraction starts from zero and is added into fp32 sums with
+//     round-to-nearest (the tensor cores add with truncation).
+//     The tensor-core z is nearer the exact logit than the plain version's
+//     (a chain of fp32 FMAs in order of d: 5.3e-6 against 1.2e-5 from
+//     fp64 at B=1000, d=64, unit normal u, v), yet another rounding: where
+//     p is large, du - the difference of p . v and v - cancels, and a
+//     first version's du left the plain version's by 2.2x the tolerance.
+//     So a p above 2^-7 (at most 128 a row, a few where a row's p is
+//     peaked, none where it is flat) takes its logit from the plain
+//     version's own chain, read from the fp32 u and v, and the accurate
+//     expf; the rest take __expf.  dv's column sums of g p (db) are fp32
+//     adds in a fixed order and a fixed quad shuffle.  z is computed in
+//     both kernels.
 //   The ragged edges are masked (no padding column with a huge logQ).
-//   d is at most 128: the backward's register tiles hold ceil(d / 16)
-//   dims a thread, a template argument, so d = 64 takes half the
-//   registers of d = 128.
+//   d is at most 128.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "tf32x3.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -53,10 +85,8 @@ namespace {
 using tiles::kCols;
 using tiles::kRows;
 using tiles::kThreads;
-using tiles::kXS;
 
 constexpr float kNeg = -1e30f;
-constexpr int kPS = kCols + 4;  // p tile row stride (rows 4 apart on other banks)
 constexpr int kMaxD = 128;
 
 __device__ __forceinline__ float logit(float dot, float b, float q) {
@@ -146,193 +176,288 @@ fwd_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-// ---- backward: du_acc = p . v, rows outer ----------------------------------
+// ---- backward on the tensor cores ----------------------------------------
 
-template <int NS>  // dims per thread: tx + 16 s, s < NS = ceil(d / 16)
-__global__ void __launch_bounds__(kThreads)
-du_kernel(const float* __restrict__ u, const float* __restrict__ v,
-          const float* __restrict__ bias, const float* __restrict__ logq,
-          const float* __restrict__ lse, float* __restrict__ du_acc, int B,
-          int d) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* ys = xs + tiles::x_tile_floats(d);
-  float* ps = ys + tiles::y_tile_floats(d);
-  float* cb = ps + kRows * kPS;
-  float* cq = cb + kCols;
-  float* lse_s = cq + kCols;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.x * kRows;
-  tiles::load_x_tile(u, B, d, r0, xs);
-  if (tid < kRows) lse_s[tid] = r0 + tid < B ? lse[r0 + tid] : 0.f;
+constexpr int kStream = 32;    // streamed rows of a tile: one slab of k
+constexpr int kPadRows = 128;  // Bp: B rounded up to this
 
-  float out[4][NS];
+// d padded to whole 128-byte slabs of tf32 (zeros add nothing)
+__host__ __device__ constexpr int pad_dims(int d) { return (d + 31) / 32 * 32; }
+__host__ __device__ constexpr int pad_rows(int b) {
+  return (b + kPadRows - 1) / kPadRows * kPadRows;
+}
+// Up to DP = 64 a thread keeps the fixed rows' A fragments of z in
+// registers (DP of them), three blocks an SM; above, they stay in shared
+// memory, one block an SM.
+__host__ __device__ constexpr bool bwd_a_in_regs(int dp) { return dp <= 64; }
+// bytes: the fixed rows' hi and lo tiles where they live in shared
+// memory; two stages of the streamed rows' hi and lo tiles for z (k =
+// dims) and for the contraction (k = rows); two stages of 32 (bias, logQ)
+// or (lse, g) pairs; 1024 for alignment
+__host__ __device__ constexpr size_t bwd_fixed_bytes(int dp) {
+  return bwd_a_in_regs(dp) ? 0 : 2 * static_cast<size_t>(dp) * 64 * 4;
+}
+__host__ __device__ constexpr size_t bwd_stage_bytes(int dp) {
+  return 4 * static_cast<size_t>(dp) * 128;
+}
+size_t bwd_smem_bytes(int d) {
+  const int dp = pad_dims(d);
+  return 1024 + bwd_fixed_bytes(dp) + 2 * bwd_stage_bytes(dp) +
+         2 * kStream * sizeof(float2);
+}
+
+// Per operand x (u, v): hi, lo (Bp, DP) and their transposes (DP, Bp),
+// whose columns take each 8 rows in the order {0, 2, 4, 6, 1, 3, 5, 7},
+// and x itself (Bp, DP), zero-padded; bq (Bp,) (bias, logQ) and lg (Bp,)
+// (lse, g).
+struct Split {
+  float *hi, *lo, *hi_t, *lo_t, *x;
+};
+
+__global__ void prep_kernel(const float* __restrict__ u,
+                            const float* __restrict__ v,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ logq,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ g, Split su, Split sv,
+                            float2* bq, float2* lg, int B, int Bp, int d,
+                            int DP) {
+  const size_t total = static_cast<size_t>(Bp) * DP;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int r = static_cast<int>(i / DP), j = static_cast<int>(i % DP);
+    const bool ok = r < B && j < d;
+    const size_t src = static_cast<size_t>(r) * d + j;
+    // slot of row r among its 8: the inverse of {0, 2, 4, 6, 1, 3, 5, 7}
+    const size_t t = static_cast<size_t>(j) * Bp + (r & ~7) +
+                     ((r & 1) << 2 | (r & 7) >> 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int s = 0; s < NS; ++s) out[i][s] = 0.f;
-  float acc[4][8];
-  for (int c0 = 0; c0 < B; c0 += kCols) {
-    __syncthreads();  // the previous tile's contraction is done
-    tiles::load_y_tile(v, B, d, c0, ys);
-    if (tid < kCols) {
-      const int c = c0 + tid;
-      cb[tid] = c < B ? bias[c] : 0.f;
-      cq[tid] = c < B ? logq[c] : 0.f;
+    for (int k = 0; k < 2; ++k) {
+      const Split& o = k ? sv : su;
+      const float x = ok ? (k ? v : u)[src] : 0.f;
+      const float2 p = tf32x3::split(x);
+      o.x[i] = x;
+      o.hi[i] = p.x;
+      o.lo[i] = p.y;
+      o.hi_t[t] = p.x;
+      o.lo_t[t] = p.y;
     }
-    __syncthreads();
-    tiles::tile_dot(xs, ys, d, acc);
-    const int n_valid = min(kCols, B - c0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int c = tx + 16 * q;
-        const bool ok = c < n_valid && r0 + r < B;
-        ps[r * kPS + c] =
-            ok ? expf(logit(acc[i][q], cb[c], cq[c]) - lse_s[r]) : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int c = 0; c < n_valid; ++c) {
-      float pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(4 * ty + i) * kPS + c];
-      const float* yrow = ys + c * (d + 1);
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int j = tx + 16 * s;
-        if (j < d) {
-          const float y = yrow[j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) out[i][s] = fmaf(pr[i], y, out[i][s]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + 4 * ty + i;
-    if (row >= B) continue;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int j = tx + 16 * s;
-      if (j < d) du_acc[static_cast<size_t>(row) * d + j] = out[i][s];
+    if (j == 0) {
+      bq[r] = r < B ? make_float2(bias[r], logq[r]) : make_float2(0.f, 0.f);
+      lg[r] = r < B ? make_float2(lse[r], g[r]) : make_float2(0.f, 0.f);
     }
   }
 }
 
-// ---- backward: dv_acc = (g p)^T . u and db_acc = colsum(g p), cols outer ---
+// p of a logit dot: kDV false, fixed (lse_o, g_o), stream (bias_r, logQ_r);
+// kDV true, fixed (bias_r, logQ_r), stream (lse_o, g_o).  kExact: expf, as
+// the plain version; else __expf (ex2.approx).
+template <bool kDV, bool kExact>
+__device__ __forceinline__ float prob(float dot, float2 fv, float2 sv) {
+  const float x = kDV ? logit(dot, fv.x, fv.y) - sv.x
+                      : logit(dot, sv.x, sv.y) - fv.x;
+  return kExact ? expf(x) : __expf(x);
+}
 
-template <int NS>  // dims per thread: ty + 16 s, s < NS = ceil(d / 16)
-__global__ void __launch_bounds__(kThreads)
-dv_kernel(const float* __restrict__ u, const float* __restrict__ v,
-          const float* __restrict__ bias, const float* __restrict__ logq,
-          const float* __restrict__ lse, const float* __restrict__ g,
-          float* __restrict__ dv_acc, float* __restrict__ db_acc, int B,
-          int d) {
-  extern __shared__ __align__(16) float smem[];
-  float* ys = smem;
-  float* xs = ys + tiles::y_tile_floats(d);
-  float* gps = xs + tiles::x_tile_floats(d);
-  float* cb = gps + kRows * kPS;
-  float* cq = cb + kCols;
-  float* lse_s = cq + kCols;
-  float* g_s = lse_s + kRows;
-  float* dbp = g_s + kRows;  // (16, kCols) per-ty partial column sums
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * kCols;
-  const int n_valid = min(kCols, B - c0);
-  tiles::load_y_tile(v, B, d, c0, ys);
-  if (tid < kCols) {
-    const int c = c0 + tid;
-    cb[tid] = c < B ? bias[c] : 0.f;
-    cq[tid] = c < B ? logq[c] : 0.f;
+// The plain version's dot: a chain of fp32 FMAs in order of d.  Out of
+// line: it runs for few elements, and sixteen inlined copies cost more.
+__device__ __noinline__ float fp32_dot(const float* __restrict__ a,
+                                       const float* __restrict__ b, int d) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < d; ++j) acc = fmaf(__ldg(a + j), __ldg(b + j), acc);
+  return acc;
+}
+
+// A p above this takes its logit from fp32_dot rather than the tensor cores.
+constexpr float kExactP = 1.f / 128.f;
+
+// kDV false (du): fixed = u rows o with fvec = lg, stream = v rows r with
+//   svec = bq; out = du_acc.
+// kDV true (dv): fixed = v rows r with fvec = bq, stream = u rows o with
+//   svec = lg; out = dv_acc, db = db_acc.
+template <int DP, bool kDV>
+__global__ void __launch_bounds__(128, bwd_a_in_regs(DP) ? 3 : 1)
+bwd_kernel(Split fixed, Split stream, const float2* __restrict__ fvec,
+           const float2* __restrict__ svec, float* __restrict__ out,
+           float* __restrict__ db, int B, int Bp, int d) {
+  using tf32x3::bits;
+  using tf32x3::sw128_desc;
+  constexpr int kThreads = 128;            // one warpgroup
+  constexpr int kFixed = 64;               // fixed rows of a block
+  constexpr int kK = DP / 8;               // k-steps of z
+  constexpr bool kARegs = bwd_a_in_regs(DP);
+  constexpr uint32_t kFixedPart = DP * kFixed * 4;   // hi or lo tile
+  constexpr uint32_t kZPart = DP * kStream * 4;      // stream, k = dims
+  constexpr uint32_t kPPart = DP * 128;              // stream, k = rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (tf32x3::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + bwd_fixed_bytes(DP);
+  float2* vring = reinterpret_cast<float2*>(ring + 2 * bwd_stage_bytes(DP));
+  const uint32_t fixed_s = tf32x3::smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int f0 = blockIdx.x * kFixed;
+  // this thread's fixed rows lf + 8 r: the wgmma accumulator fragment
+  // holds element 4 j + 2 r + e at row lf + 8 r, column 8 j + 2 t + e
+  const int lf = 16 * warp + g;
+
+  auto load_stage = [&](int it) {
+    unsigned char* st = ring + (it & 1) * bwd_stage_bytes(DP);
+    const size_t c0 = static_cast<size_t>(it) * kStream;
+    tf32x3::load_k_major<DP, kStream, kThreads>(st, stream.hi + c0 * DP);
+    tf32x3::load_k_major<DP, kStream, kThreads>(st + kZPart,
+                                                stream.lo + c0 * DP);
+    tf32x3::load_slab<DP, kThreads>(st + 2 * kZPart, stream.hi_t + c0, Bp);
+    tf32x3::load_slab<DP, kThreads>(st + 2 * kZPart + kPPart,
+                                    stream.lo_t + c0, Bp);
+    if (tid < kStream / 2)
+      tf32x3::cp_async16(vring + (it & 1) * kStream + 2 * tid,
+                         svec + c0 + 2 * tid);
+  };
+  // z's A operand: in registers, the fragment {(lf, k), (lf + 8, k),
+  // (lf, k + 4), (lf + 8, k + 4)} of k-step kk at k = 8 kk + t; or a tile
+  uint32_t fa[kARegs ? kK : 1][2][4];
+  if constexpr (kARegs) {
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const size_t at = static_cast<size_t>(f0 + lf + 8 * (q & 1)) * DP +
+                          8 * kk + t + 4 * (q >> 1);
+        fa[kk][0][q] = bits(fixed.hi[at]);
+        fa[kk][1][q] = bits(fixed.lo[at]);
+      }
+  } else {
+    tf32x3::load_k_major<DP, kFixed, kThreads>(
+        smem, fixed.hi + static_cast<size_t>(f0) * DP);
+    tf32x3::load_k_major<DP, kFixed, kThreads>(
+        smem + kFixedPart, fixed.lo + static_cast<size_t>(f0) * DP);
   }
+  load_stage(0);
+  tf32x3::cp_async_commit();
+  const float2 fv[2] = {fvec[f0 + lf], fvec[f0 + lf + 8]};
 
-  float out[8][NS];  // columns tx + 16 q, dims ty + 16 s
+  float acc[DP / 2];
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
-#pragma unroll
-    for (int s = 0; s < NS; ++s) out[q][s] = 0.f;
-  float colsum[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) colsum[q] = 0.f;
-  float acc[4][8];
-  for (int r0 = 0; r0 < B; r0 += kRows) {
-    __syncthreads();  // the previous tile's contraction is done
-    tiles::load_x_tile(u, B, d, r0, xs);
-    if (tid < kRows) {
-      const int r = r0 + tid;
-      lse_s[tid] = r < B ? lse[r] : 0.f;
-      g_s[tid] = r < B ? g[r] : 0.f;
-    }
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float dbs[2] = {0.f, 0.f};
+
+  const int n_it = Bp / kStream;
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load_stage(it + 1);
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<1>();
+    tf32x3::fence_proxy_async();
     __syncthreads();
-    tiles::tile_dot(xs, ys, d, acc);
-    const int n_rows = min(kRows, B - r0);
+    const uint32_t st =
+        tf32x3::smem_u32(ring + (it & 1) * bwd_stage_bytes(DP));
+    const float2* vec = vring + (it & 1) * kStream;
+    const int c0 = it * kStream;
+
+    // z (64 x 32) = fixed . stream^T over d: k-step kk is 32 bytes of
+    // slab kk / 4; lo.hi, hi.lo, hi.hi into one accumulator
+    float s[16];
+    tf32x3::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int c = tx + 16 * q;
-        const bool ok = c < n_valid && r < n_rows;
-        const float gp =
-            ok ? __fmul_rn(g_s[r],
-                           expf(logit(acc[i][q], cb[c], cq[c]) - lse_s[r]))
-               : 0.f;
-        gps[r * kPS + c] = gp;
-        colsum[q] += gp;
+    for (int kk = 0; kk < kK; ++kk) {
+      const uint32_t sb = st + (kk >> 2) * (kStream * 128) + (kk & 3) * 32;
+      if constexpr (kARegs) {
+        tf32x3::wgmma_rs_n32(s, fa[kk][1], sw128_desc(sb), kk > 0);
+        tf32x3::wgmma_rs_n32(s, fa[kk][0], sw128_desc(sb + kZPart), 1);
+        tf32x3::wgmma_rs_n32(s, fa[kk][0], sw128_desc(sb), 1);
+      } else {
+        const uint32_t fs =
+            fixed_s + (kk >> 2) * (kFixed * 128) + (kk & 3) * 32;
+        tf32x3::wgmma_ss_n32(s, sw128_desc(fs + kFixedPart), sw128_desc(sb),
+                             kk > 0);
+        tf32x3::wgmma_ss_n32(s, sw128_desc(fs), sw128_desc(sb + kZPart), 1);
+        tf32x3::wgmma_ss_n32(s, sw128_desc(fs), sw128_desc(sb), 1);
       }
     }
-    __syncthreads();
-    for (int o = 0; o < n_rows; ++o) {
-      float a[8];
+    tf32x3::wgmma_commit();
+    tf32x3::wgmma_wait_all();
+    tf32x3::keep(s);
+
+    // p (du) or g p (dv) in place
 #pragma unroll
-      for (int q = 0; q < 8; ++q) a[q] = gps[o * kPS + tx + 16 * q];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int j = ty + 16 * s;
-        if (j < d) {
-          const float x = xs[j * kXS + o];
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int q = 0; q < 8; ++q) out[q][s] = fmaf(a[q], x, out[q][s]);
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * r + e];
+          const int ls = 8 * j + 2 * t + e, lfr = lf + 8 * r;
+          const float2 sv = vec[ls];
+          float val = 0.f;
+          if (c0 + ls < B && f0 + lfr < B) {
+            float p = prob<kDV, false>(x, fv[r], sv);
+            if (p > kExactP)
+              p = prob<kDV, true>(
+                  fp32_dot(fixed.x + static_cast<size_t>(f0 + lfr) * DP,
+                           stream.x + static_cast<size_t>(c0 + ls) * DP, d),
+                  fv[r], sv);
+            val = kDV ? __fmul_rn(sv.y, p) : p;
+          }
+          x = val;
+          if (kDV) dbs[r] += val;
         }
+
+    // acc += p . stream, from zero each tile: k-step kk takes stream rows
+    // 8 kk + {0, 2, 4, 6, 1, 3, 5, 7}, the transposed tiles' order, which
+    // makes s[4 kk .. 4 kk + 3] = {(g, 2t), (g, 2t+1), (g+8, 2t),
+    // (g+8, 2t+1)} the A fragment {a0, a2, a1, a3}
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 h = tf32x3::split(s[4 * kk + ((q & 1) << 1 | q >> 1)]);
+        ah[kk][q] = bits(h.x);
+        al[kk][q] = bits(h.y);
       }
-    }
-  }
+    float part[DP / 2];
+    tf32x3::wgmma_fence();
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int c = tx + 16 * q;
-    dbp[ty * kCols + c] = colsum[q];
-    if (c >= n_valid) continue;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int j = ty + 16 * s;
-      if (j < d) dv_acc[static_cast<size_t>(c0 + c) * d + j] = out[q][s];
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pb = st + 2 * kZPart + kk * 32;
+      tf32x3::wgmma_rs<DP>(part, al[kk], sw128_desc(pb), kk > 0);
+      tf32x3::wgmma_rs<DP>(part, ah[kk], sw128_desc(pb + kPPart), 1);
+      tf32x3::wgmma_rs<DP>(part, ah[kk], sw128_desc(pb), 1);
     }
+    tf32x3::wgmma_commit();
+    tf32x3::wgmma_wait_all();
+    tf32x3::keep(part);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] += part[i];
+    __syncthreads();  // the stage is read; the next iteration refills it
   }
-  __syncthreads();
-  if (tid < n_valid) {
-    float s = 0.f;
-    for (int t = 0; t < 16; ++t) s += dbp[t * kCols + tid];  // fixed order
-    db_acc[c0 + tid] = s;
+
+#pragma unroll
+  for (int m = 0; m < DP / 8; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = f0 + lf + 8 * r, j = 8 * m + 2 * t + e;
+        if (row < B && j < d)
+          out[static_cast<size_t>(row) * d + j] = acc[4 * m + 2 * r + e];
+      }
+  if (kDV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = dbs[r];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int row = f0 + lf + 8 * r;
+      if (t == 0 && row < B) db[row] = x;
+    }
   }
 }
 
 size_t fwd_smem_floats(int d) {
   return tiles::x_tile_floats(d) + tiles::y_tile_floats(d) + 2 * kCols;
-}
-size_t du_smem_floats(int d) {
-  return tiles::x_tile_floats(d) + tiles::y_tile_floats(d) + kRows * kPS +
-         2 * kCols + kRows;
-}
-size_t dv_smem_floats(int d) {
-  return tiles::x_tile_floats(d) + tiles::y_tile_floats(d) + kRows * kPS +
-         2 * kCols + 2 * kRows + 16 * kCols;
 }
 
 template <typename Kernel>
@@ -343,15 +468,20 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
 
 }  // namespace
 
-// Largest dynamic shared memory any of the three kernels takes at width d.
+// Largest dynamic shared memory any of the kernels takes at width d.
 extern "C" size_t inbatch_softmax_smem_bytes(int d) {
-  size_t f = fwd_smem_floats(d);
-  if (du_smem_floats(d) > f) f = du_smem_floats(d);
-  if (dv_smem_floats(d) > f) f = dv_smem_floats(d);
-  return f * sizeof(float);
+  const size_t f = fwd_smem_floats(d) * sizeof(float), b = bwd_smem_bytes(d);
+  return f > b ? f : b;
 }
 
 extern "C" int inbatch_softmax_max_d() { return kMaxD; }
+
+// Scratch floats the backward takes: the split u and v and the packed
+// vectors, padded.
+extern "C" size_t inbatch_softmax_bwd_scratch_floats(int B, int d) {
+  const size_t bp = pad_rows(B), dp = pad_dims(d);
+  return 10 * bp * dp + 4 * bp;
+}
 
 // u, v (B, d), bias, logq (B,) fp32 -> loss, m, l (B,).  Returns the CUDA
 // error code of the launch (0 on success).
@@ -369,43 +499,60 @@ extern "C" int inbatch_softmax_fwd_launch(const float* u, const float* v,
 
 namespace {
 
-template <int NS>
+template <int DP>
 int bwd_launch(const float* u, const float* v, const float* bias,
                const float* logq, const float* lse, const float* g,
-               float* du_acc, float* dv_acc, float* db_acc, int B, int d,
-               cudaStream_t stream) {
-  size_t smem = du_smem_floats(d) * sizeof(float);
-  cudaError_t err = allow_smem(du_kernel<NS>, smem);
+               float* scratch, float* du_acc, float* dv_acc, float* db_acc,
+               int B, int d, cudaStream_t stream) {
+  const int bp = pad_rows(B);
+  const size_t total = static_cast<size_t>(bp) * DP;
+  Split sp[2];
+  for (int k = 0; k < 2; ++k)
+    sp[k] = Split{scratch + (5 * k) * total, scratch + (5 * k + 1) * total,
+                  scratch + (5 * k + 2) * total, scratch + (5 * k + 3) * total,
+                  scratch + (5 * k + 4) * total};
+  float2* bq = reinterpret_cast<float2*>(scratch + 10 * total);
+  float2* lg = bq + bp;
+  const int prep_blocks =
+      static_cast<int>(total / 256 < 4096 ? (total + 255) / 256 : 4096);
+  prep_kernel<<<prep_blocks, 256, 0, stream>>>(u, v, bias, logq, lse, g,
+                                               sp[0], sp[1], bq, lg, B, bp,
+                                               d, DP);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  du_kernel<NS><<<(B + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      u, v, bias, logq, lse, du_acc, B, d);
+  const size_t smem = bwd_smem_bytes(d);
+  const int blocks = bp / 64, threads = 128;
+  err = allow_smem(bwd_kernel<DP, false>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_kernel<DP, false><<<blocks, threads, smem, stream>>>(
+      sp[0], sp[1], lg, bq, du_acc, nullptr, B, bp, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  smem = dv_smem_floats(d) * sizeof(float);
-  err = allow_smem(dv_kernel<NS>, smem);
+  err = allow_smem(bwd_kernel<DP, true>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dv_kernel<NS><<<(B + kCols - 1) / kCols, kThreads, smem, stream>>>(
-      u, v, bias, logq, lse, g, dv_acc, db_acc, B, d);
+  bwd_kernel<DP, true><<<blocks, threads, smem, stream>>>(
+      sp[1], sp[0], bq, lg, dv_acc, db_acc, B, bp, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// As the forward, plus lse, g (B,) -> du_acc (B, d), dv_acc (B, d),
-// db_acc (B,).  Returns the CUDA error code of the launches.
+// As the forward, plus lse, g (B,) and a scratch buffer of
+// inbatch_softmax_bwd_scratch_floats(B, d) floats (16-byte aligned) ->
+// du_acc (B, d), dv_acc (B, d), db_acc (B,).  Returns the CUDA error code
+// of the launches.
 extern "C" int inbatch_softmax_bwd_launch(const float* u, const float* v,
                                           const float* bias, const float* logq,
                                           const float* lse, const float* g,
-                                          float* du_acc, float* dv_acc,
-                                          float* db_acc, int B, int d,
-                                          cudaStream_t stream) {
-#define REPRO_BWD(ns)                                                     \
-  case ns:                                                                \
-    return bwd_launch<ns>(u, v, bias, logq, lse, g, du_acc, dv_acc, db_acc, \
-                          B, d, stream);
-  switch ((d + 15) / 16) {
-    REPRO_BWD(1) REPRO_BWD(2) REPRO_BWD(3) REPRO_BWD(4)
-    REPRO_BWD(5) REPRO_BWD(6) REPRO_BWD(7) REPRO_BWD(8)
+                                          float* scratch, float* du_acc,
+                                          float* dv_acc, float* db_acc, int B,
+                                          int d, cudaStream_t stream) {
+#define REPRO_BWD(dp)                                                       \
+  case dp:                                                                  \
+    return bwd_launch<dp>(u, v, bias, logq, lse, g, scratch, du_acc, dv_acc, \
+                          db_acc, B, d, stream);
+  switch (pad_dims(d)) {
+    REPRO_BWD(32) REPRO_BWD(64) REPRO_BWD(96) REPRO_BWD(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

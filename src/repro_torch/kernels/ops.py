@@ -96,12 +96,15 @@ def cluster_rank(u: torch.Tensor, e: torch.Tensor, n: int
     lib = build.load("cluster_rank")
     _check_smem("cluster_rank", lib.cluster_rank_smem_bytes(k, n),
                 f"K={k}, n={n}")
+    # scratch: the (B, K) scores and each query's segment maxima
     scores = torch.empty((b, k), dtype=torch.float32, device=u.device)
+    segmax = torch.empty((b, lib.cluster_rank_segments(k)),
+                         dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         code = lib.cluster_rank_launch(u.data_ptr(), e.data_ptr(),
-                                       scores.data_ptr(), vals.data_ptr(),
-                                       idx.data_ptr(), b, k, d, n,
-                                       _stream(u.device))
+                                       scores.data_ptr(), segmax.data_ptr(),
+                                       vals.data_ptr(), idx.data_ptr(), b, k,
+                                       d, n, _stream(u.device))
     _raise_on_error(code, "cluster_rank")
     LAUNCHES["cluster_rank"] += 1
     return vals, idx
@@ -283,12 +286,23 @@ def _check_inbatch(lib, u, v, vecs) -> Tuple[int, int]:
     return b, d
 
 
+def inbatch_softmax(u: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                    log_q: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row in-batch CE over z = u v^T + bias - logQ -> (B,) losses;
+    ``log_q=None`` drops the logQ term.  One forward launch."""
+    return inbatch_softmax_stats(u, v, bias, log_q)[0]
+
+
 def inbatch_softmax_stats(u: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor, log_q: torch.Tensor
+                          bias: torch.Tensor,
+                          log_q: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """Per-row in-batch CE over z = u v^T + bias - logQ: u, v (B, d),
-    bias, log_q (B,) fp32 -> (loss, m, l), each (B,); lse = m + log l."""
+    bias, log_q (B,) fp32 -> (loss, m, l), each (B,); lse = m + log l.
+    ``log_q=None`` means zeros."""
+    if log_q is None:
+        log_q = torch.zeros_like(bias)
     if _on_cpu(u, v, bias, log_q):
         return ref.inbatch_softmax_ref(u, v, bias, log_q)
     lib = build.load("inbatch_softmax")
@@ -325,12 +339,16 @@ def inbatch_softmax_bwd(u: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     dv_acc = torch.empty((b, d), dtype=torch.float32, device=u.device)
     db_acc = torch.empty((b,), dtype=torch.float32, device=u.device)
     if b > 0:
+        # scratch: u and v split into tf32 (hi, lo) pairs, padded
+        scratch = torch.empty(
+            (lib.inbatch_softmax_bwd_scratch_floats(b, d),),
+            dtype=torch.float32, device=u.device)
         with torch.cuda.device(u.device):
             code = lib.inbatch_softmax_bwd_launch(
                 u.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 log_q.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                du_acc.data_ptr(), dv_acc.data_ptr(), db_acc.data_ptr(),
-                b, d, _stream(u.device))
+                scratch.data_ptr(), du_acc.data_ptr(), dv_acc.data_ptr(),
+                db_acc.data_ptr(), b, d, _stream(u.device))
         _raise_on_error(code, "inbatch_softmax_bwd")
         LAUNCHES["inbatch_softmax_bwd"] += 1
     du = g[:, None] * (du_acc - v)        # p minus the identity

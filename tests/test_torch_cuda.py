@@ -68,6 +68,44 @@ def test_cluster_rank_kernel_random_close(cuda):
     assert torch.all((got - want).abs() <= 1e-5 * want.abs().clamp(min=1))
 
 
+@pytest.mark.parametrize("b,k,n", [(512, 16384, 128), (512, 4096, 128),
+                                   (1, 16384, 128), (37, 4096, 4096),
+                                   (300, 16384, 16384), (5, 1000, 999),
+                                   (70, 4096, 1)])
+def test_cluster_rank_kernel_serve_and_shard_shapes(cuda, b, k, n):
+    """The serve shape, the 4-shard shape (K/4 clusters), B = 1, ragged B
+    and n up to K: tied integer inputs bitwise, random inputs within
+    near-ties of the plain scores and bitwise across two launches."""
+    g = np.random.default_rng(b + k + n)
+    d = 64
+    ut = torch.from_numpy(g.integers(-2, 3, size=(b, d)).astype(np.float32))
+    et = torch.from_numpy(g.integers(-1, 2, size=(k, d)).astype(np.float32))
+    ut, et = ut.to(cuda), et.to(cuda)
+    tv, ti = ops.cluster_rank(ut, et, n)
+    trv, tri = ref.cluster_rank_ref(ut, et, n)
+    torch.cuda.synchronize()
+    assert torch.equal(ti, tri)
+    assert torch.equal(tv.view(torch.int32), trv.view(torch.int32))
+    gen = torch.Generator(device=cuda).manual_seed(b * k + n)
+    u = torch.randn((b, d), generator=gen, device=cuda)
+    e = torch.randn((k, d), generator=gen, device=cuda) * 0.1
+    vals, idx = ops.cluster_rank(u, e, n)
+    vals2, idx2 = ops.cluster_rank(u, e, n)
+    rv, ri = ref.cluster_rank_ref(u, e, n)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx2)
+    assert torch.equal(vals.view(torch.int32), vals2.view(torch.int32))
+    torch.testing.assert_close(vals, rv, rtol=1e-5, atol=1e-6)
+    assert torch.all(vals[:, 1:] <= vals[:, :-1])
+    scores = u @ e.T
+    diff = idx != ri
+    got = torch.gather(scores, 1, idx.long())[diff]
+    want = torch.gather(scores, 1, ri.long())[diff]
+    assert torch.all((got - want).abs() <= 1e-5 * want.abs().clamp(min=1))
+    assert torch.all(torch.sort(idx, 1).values[:, 1:]
+                     != torch.sort(idx, 1).values[:, :-1])
+
+
 @pytest.mark.parametrize("c,l,chunk,target", [(128, 256, 8, 512),
                                               (13, 17, 4, 40), (1, 1, 1, 1),
                                               (300, 5, 3, 100)])
@@ -180,6 +218,69 @@ def test_inbatch_softmax_kernels_match_plain(cuda, b, d):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,d", [(1000, 1), (1000, 8), (777, 20),
+                                 (4096, 64), (300, 128), (129, 64), (1, 64),
+                                 (5000, 33), (65, 96)])
+def test_inbatch_softmax_bwd_tensor_core_widths(cuda, b, d):
+    """The tensor-core backward (3xTF32) at every padded width and ragged
+    B, against plain at rtol 1e-4 / atol 1e-5.  u and v are drawn at
+    scale 0.5, as chip_smoke.py draws them (logits of sd 2 at d=64);
+    at unit scale the plain version's own fp32 logits move du by more
+    than the tolerance, and the fp64 test below holds that case."""
+    u, v, bias, lq, g = _softmax_inputs(cuda, b, d, 7 * b + d)
+    u, v = u * 0.5, v * 0.5
+    _, m, l = ref.inbatch_softmax_ref(u, v, bias, lq)
+    lse = m + torch.log(l)
+    before = ops.LAUNCHES["inbatch_softmax_bwd"]
+    got = ops.inbatch_softmax_bwd(u, v, bias, lq, lse, g)
+    want = ref.inbatch_softmax_bwd_ref(u, v, bias, lq, lse, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["inbatch_softmax_bwd"] == before + 1
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,d,scale", [(2048, 64, 2.0), (129, 64, 1.0),
+                                       (300, 128, 1.0), (5000, 33, 1.0)])
+def test_inbatch_softmax_bwd_wide_logits_near_fp64(cuda, b, d, scale):
+    """Wide logits (u, v of scale 2 at d=64: sd 16; unit scale at ragged
+    B): the kernel and plain are each held to an fp64 backward, the
+    kernel within plain's own largest error plus rtol 1e-4 / atol 1e-5."""
+    u, v, bias, lq, g = _softmax_inputs(cuda, b, d, 5 + b)
+    u, v = u * scale, v * scale
+    _, m, l = ref.inbatch_softmax_ref(u, v, bias, lq)
+    lse = m + torch.log(l)
+    got = ops.inbatch_softmax_bwd(u, v, bias, lq, lse, g)
+    plain = ref.inbatch_softmax_bwd_ref(u, v, bias, lq, lse, g)
+    exact = ref.inbatch_softmax_bwd_ref(
+        *(x.double() for x in (u, v, bias, lq, lse, g)))
+    torch.cuda.synchronize()
+    for k, p, x in zip(got, plain, exact):
+        plain_err = float((p.double() - x).abs().max())
+        assert torch.all((k.double() - x).abs()
+                         <= plain_err + 1e-5 + 1e-4 * x.abs())
+
+
+def test_inbatch_softmax_losses_on_card(cuda):
+    """ops.inbatch_softmax is one forward launch, bitwise the stats' loss;
+    log_q=None is bitwise log_q of zeros."""
+    u, v, bias, lq, _ = _softmax_inputs(cuda, 1000, 64, 11)
+    before = ops.LAUNCHES["inbatch_softmax"]
+    loss = ops.inbatch_softmax(u, v, bias, lq)
+    assert ops.LAUNCHES["inbatch_softmax"] == before + 1
+    stats = ops.inbatch_softmax_stats(u, v, bias, lq)
+    torch.cuda.synchronize()
+    assert loss.shape == (1000,)
+    assert torch.equal(loss.view(torch.int32), stats[0].view(torch.int32))
+    zeros = torch.zeros_like(bias)
+    assert torch.equal(ops.inbatch_softmax(u, v, bias).view(torch.int32),
+                       ops.inbatch_softmax(u, v, bias, zeros)
+                       .view(torch.int32))
+    for a, z in zip(ops.inbatch_softmax_stats(u, v, bias),
+                    ops.inbatch_softmax_stats(u, v, bias, zeros)):
+        assert torch.equal(a.view(torch.int32), z.view(torch.int32))
 
 
 def test_inbatch_softmax_bwd_kernel_is_deterministic(cuda):

@@ -152,6 +152,40 @@ def test_inbatch_softmax_backward_matches_reference(rng, b, d, bb, bc):
                                        err_msg=name, **FWD_BWD_TOL)
 
 
+@pytest.mark.parametrize("with_log_q", [True, False])
+@pytest.mark.parametrize("b,d,bb,bc", _SOFTMAX_SHAPES[:2])
+def test_inbatch_softmax_losses_match_reference(rng, b, d, bb, bc,
+                                                with_log_q):
+    """ops.inbatch_softmax and ref.inbatch_softmax_ref take the reference's
+    arguments, log_q optional (None: no logQ term), and give its losses."""
+    u, v, bias, lq, _ = _softmax_case(rng, b, d)
+    jargs = [jnp.asarray(x) for x in (u, v, bias)]
+    targs = [_t(x) for x in (u, v, bias)]
+    if with_log_q:
+        jargs.append(jnp.asarray(lq))
+        targs.append(_t(lq))
+    want_pallas = np.asarray(j_ops.inbatch_softmax(*jargs, block_b=bb,
+                                                   block_c=bc))
+    want_ref = np.asarray(j_ref.inbatch_softmax_ref(*jargs))
+    got = t_ops.inbatch_softmax(*targs)
+    got_ref, m, l = t_ref.inbatch_softmax_ref(*targs)
+    assert got.shape == (b,)
+    for want in (want_pallas, want_ref):
+        np.testing.assert_allclose(got.numpy(), want, **FWD_BWD_TOL)
+        np.testing.assert_allclose(got_ref.numpy(), want, **FWD_BWD_TOL)
+    np.testing.assert_allclose(
+        (m + torch.log(l)).numpy(),
+        np.asarray(jax.nn.logsumexp(
+            jargs[0] @ jargs[1].T + jargs[2][None, :]
+            - (jargs[3][None, :] if with_log_q else 0.0), axis=-1)),
+        **FWD_BWD_TOL)
+    if not with_log_q:
+        zeros = torch.zeros(b)
+        for x, y in zip(t_ops.inbatch_softmax_stats(*targs),
+                        t_ops.inbatch_softmax_stats(*targs, zeros)):
+            assert torch.equal(x, y)
+
+
 def test_ce_rows_gradcheck_float64():
     """The autograd Function's backward is the VJP of its forward."""
     g = torch.Generator().manual_seed(0)
@@ -280,6 +314,7 @@ def test_train_wrappers_on_cpu_run_plain_and_count_no_launch(rng):
     assert torch.equal(t_ops.vq_assign(v, v, r), t_ref.vq_assign_ref(v, v, r))
     t_ops.inbatch_softmax_bwd(v, v, r, r, r, r)
     t_ops.inbatch_softmax_stats(v, v, r, r)
+    t_ops.inbatch_softmax(v, v, r)
     t_ops.ema_segment_sum(v, torch.zeros(6, dtype=torch.int32), r, 3)
     assert t_ops.LAUNCHES == dict.fromkeys(t_ops.LAUNCHES, 0)
 
